@@ -48,6 +48,7 @@ import torch
 from repro_torch.core import (isa, slots, stackdist, stackdist_cold,
                               stackdist_interleaved)
 from repro_torch.core.traces import Mix, analytic_cpi  # re-export
+from repro_torch.device import resolve_device as _device
 
 __all__ = [
     "ReconfigConfig", "SchedulerConfig", "SimResult", "PairResult",
@@ -70,15 +71,6 @@ SCAN_UNROLL = 1
 # The CPU keeps the reference's CPU value; CUDA takes the reference's
 # accelerator value.
 INTERLEAVE_WINDOW = {"cpu": 256, "cuda": 512}
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' (the default) but CUDA is not available — pass "
-            "device='cpu' to run on the CPU")
-    return dev
 
 
 def _np(x) -> np.ndarray:

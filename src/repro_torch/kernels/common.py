@@ -1,0 +1,125 @@
+"""What every kernel of the port shares: the `use_kernel` knob and the
+`nvcc` build into `kernels/build/`.
+
+Each kernel is one CUDA C++ source under `csrc/` with a plain C entry
+point.  `build` compiles it for `sm_90a` at first use, into a shared
+library named by the sha1 of the source, its local headers and the flags
+(so a changed source builds anew and concurrent builds race safely),
+and `library` loads it with `ctypes`.  Nothing here runs at import: the
+CPU has no `nvcc`, and the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+__all__ = ["resolve", "build", "library", "BUILD_DIR", "NVCC_FLAGS"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_HERE, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def resolve(use_kernel, device: torch.device) -> bool:
+    """Resolve a `use_kernel` knob for tensors on `device` to "call the
+    wrapper" (True) or "run the plain body" (False).  The wrappers own the
+    device choice: they launch the kernel on CUDA tensors and run the
+    plain body on CPU tensors.
+
+    None/'auto' -> the wrapper; True/'kernel' -> the wrapper, raising here
+    on CPU tensors (there is no interpret mode); False/'plain' -> the
+    plain body on any device.
+    """
+    mode = use_kernel
+    if mode is None:
+        mode = "auto"
+    elif mode is True:
+        mode = "kernel"
+    elif mode is False:
+        mode = "plain"
+    if mode not in ("auto", "kernel", "plain"):
+        raise ValueError(f"unknown use_kernel value {use_kernel!r} "
+                         f"(expected None/bool or 'auto'|'kernel'|'plain')")
+    if mode == "kernel" and torch.device(device).type != "cuda":
+        raise ValueError(
+            "use_kernel='kernel' needs CUDA tensors: the port's kernels are "
+            "CUDA-only (no interpret mode); use 'auto' or 'plain' on the CPU")
+    return mode != "plain"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the port's kernels are built from source at first "
+                       "use")
+
+
+def _text_with_headers(source: str) -> bytes:
+    """The source's bytes followed by those of each local header it
+    includes (`#include "x.cuh"`, beside it): the library's name keys on
+    all of them."""
+    with open(source, "rb") as f:
+        text = f.read()
+    out = text
+    for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(os.path.dirname(source), name.decode()),
+                  "rb") as f:
+            out += f.read()
+    return out
+
+
+def build(source: str, verbose: bool = False) -> str:
+    """Compile `source` (a `csrc/*.cu` file) into `kernels/build/` (once
+    per source content) and return the shared library's path.  With
+    `verbose`, print what `-Xptxas=-v` reports (registers, shared memory,
+    spills) when it compiles."""
+    digest = hashlib.sha1(_text_with_headers(source) +
+                          " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    lib = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} ({r.returncode}):"
+                               f"\n{r.stderr}")
+        if verbose:
+            print(r.stdout + r.stderr, end="", flush=True)
+        os.replace(tmp, lib)   # atomic: concurrent builds race safely
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+def library(source: str, declare) -> ctypes.CDLL:
+    """The loaded library of `source`, built at first use; `declare(lib)`
+    sets its functions' `argtypes`/`restype` once, when it loads."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(build(source))
+        declare(lib)
+        _LIBS[source] = lib
+    return lib

@@ -1,0 +1,151 @@
+"""Decode attention: Hopper kernel and its plain version.
+
+PyTorch port of the JAX package's Pallas kernel
+`repro.kernels.decode_attention.decode_attention`: one query token per
+batch row, q (B, H, Dh), against caches (B, S, KH, Dh), each row
+attending over its first `kv_len[b]` positions, the G = H / KH query
+heads of a kv head sharing its cache rows.
+
+Both versions follow the Pallas kernel, not `repro.kernels.ref`: q is
+scaled in f32, and a row with `kv_len == 0` gives 0 (every block skipped,
+l = 0) where `ref.decode_attention_ref` gives the mean of v (the softmax
+of an all-masked row is uniform).  The model path always has kv_len >= 1.
+
+* `decode_attention_plain`: the whole cache at once, masked; any device.
+* the CUDA kernel `csrc/decode_attention.cu` for `sm_90a` (head dim
+  64/128, bf16/f32): one CTA per (kv head, batch row), reading cache rows
+  up to kv_len only.  Built with `nvcc` at first use, bound with ctypes.
+
+`decode_attention` owns the choice: CUDA tensors launch the kernel (and
+count it in `decode_attention.launches`) or raise, CPU tensors run the
+plain version; `use_kernel="plain"` forces the plain version anywhere.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from repro_torch.kernels import common
+
+__all__ = ["decode_attention", "decode_attention_plain", "build"]
+
+NEG_INF = -1e30
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "decode_attention.cu")
+HEAD_DIMS = (64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dynamic shared memory a Hopper block may use
+_SMEM_LIMIT = 232_448
+
+
+def decode_attention_plain(q, k_cache, v_cache, kv_len):
+    """q: (B, H, dh) one token; k/v_cache: (B, S, KH, dh); kv_len: (B,)
+    number of valid positions.  Returns (B, H, dh) in q's dtype."""
+    b, h, dh = q.shape
+    _, s, kh, _ = k_cache.shape
+    g = h // kh
+    qr = q.float().reshape(b, kh, g, dh) * dh ** -0.5
+    sc = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < kv_len.to(q.device)[:, None])[:, None, None, :]
+    sc = torch.where(valid, sc, NEG_INF)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(sc - m), 0.0)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    o = o / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return o.reshape(b, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+def build(verbose: bool = False) -> str:
+    """Compile `csrc/decode_attention.cu` into `kernels/build/` (once per
+    source content) and return the shared library's path."""
+    return common.build(SOURCE, verbose)
+
+
+def _declare(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention_launch.argtypes = (
+        [vp] * 5 + [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                               ctypes.c_float, vp])
+    lib.decode_attention_launch.restype = ci
+    lib.decode_attention_smem_bytes.argtypes = [ci, ci]
+    lib.decode_attention_smem_bytes.restype = ctypes.c_size_t
+
+
+def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor,
+                ndim: int) -> None:
+    if t.device != q.device:
+        raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if t.dtype != q.dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, q {q.dtype}")
+    if t.dim() != ndim or t.shape[-1] != q.shape[-1]:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}")
+    vec = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) or \
+            t.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous last dimension and "
+                         f"16-byte aligned rows (strides {t.stride()})")
+
+
+def _launch(q, k_cache, v_cache, kv_len) -> torch.Tensor:
+    """Check the operands, allocate the output and launch the kernel on
+    the current stream."""
+    b, h, dh = q.shape
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode kernel takes bf16 or f32, not {q.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"decode kernel takes head dim {HEAD_DIMS}, "
+                         f"not {dh}")
+    _check_rows("q", q, q, 3)
+    _check_rows("k_cache", k_cache, q, 4)
+    _check_rows("v_cache", v_cache, q, 4)
+    if k_cache.shape != v_cache.shape or k_cache.shape[0] != b:
+        raise ValueError(f"caches {tuple(k_cache.shape)} and "
+                         f"{tuple(v_cache.shape)} must match, with batch {b}")
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    if kh < 1 or h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    if (kv_len.device != q.device or kv_len.dtype != torch.int32
+            or tuple(kv_len.shape) != (b,) or not kv_len.is_contiguous()):
+        raise ValueError(f"kv_len must be a contiguous ({b},) int32 tensor "
+                         f"on {q.device}")
+    lib = common.library(SOURCE, _declare)
+    smem = lib.decode_attention_smem_bytes(h // kh, dh)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{h // kh} query heads per kv head need {smem} "
+                         f"bytes of shared memory, above the {_SMEM_LIMIT} "
+                         f"a Hopper block holds")
+    out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 8)(*q.stride()[:2],
+                                      *k_cache.stride()[:3],
+                                      *v_cache.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, kh, s,
+        dh, strides, dh ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, use_kernel=None):
+    """Attention of one token per row, q (B, H, dh), over the first
+    `kv_len[b]` positions of k/v_cache (B, S, KH, dh).  Returns (B, H,
+    dh).  CUDA tensors launch the decode kernel; CPU tensors, or
+    `use_kernel="plain"`, run `decode_attention_plain`;
+    `use_kernel="kernel"` raises on CPU."""
+    if not common.resolve(use_kernel, q.device) or q.device.type != "cuda":
+        return decode_attention_plain(q, k_cache, v_cache, kv_len)
+    out = _launch(q, k_cache, v_cache, kv_len)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -31,54 +31,23 @@ version.  Each counts its kernel launches in a plain integer attribute
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.common import resolve
 
 __all__ = ["window_grid", "window_cell", "window_grid_plain",
            "window_cell_plain", "window_loop_plain", "resolve", "build",
            "Carry"]
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "window_distance.cu")
-BUILD_DIR = os.path.join(_HERE, "build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "window_distance.cu")
 # a block may use 227 KB of dynamic shared memory on Hopper; the kernel's
 # static shared memory is a few dozen bytes on top
 _SMEM_LIMIT = 232_448 - 1_024
-
-
-def resolve(use_kernel, device: torch.device) -> bool:
-    """Resolve a `use_kernel` knob for tensors on `device` to "call the
-    wrapper" (True) or "run the plain body" (False).  The wrappers
-    (`window_grid`, `window_cell`) own the device choice: they launch the
-    kernel on CUDA tensors and run the plain body on CPU tensors.
-
-    None/'auto' -> the wrapper; True/'kernel' -> the wrapper, raising here
-    on CPU tensors (there is no interpret mode); False/'plain' -> the
-    plain body on any device.
-    """
-    mode = use_kernel
-    if mode is None:
-        mode = "auto"
-    elif mode is True:
-        mode = "kernel"
-    elif mode is False:
-        mode = "plain"
-    if mode not in ("auto", "kernel", "plain"):
-        raise ValueError(f"unknown use_kernel value {use_kernel!r} "
-                         f"(expected None/bool or 'auto'|'kernel'|'plain')")
-    if mode == "kernel" and torch.device(device).type != "cuda":
-        raise ValueError(
-            "use_kernel='kernel' needs CUDA tensors: the window kernel is "
-            "CUDA-only (no interpret mode); use 'auto' or 'plain' on the CPU")
-    return mode != "plain"
 
 
 # ---------------------------------------------------------------------------
@@ -296,60 +265,22 @@ def window_cell_plain(ptags, pcosts, num_active, miss_latency, quanta,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_LIB = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
-                       "the window kernel is built from source at first use")
-
-
 def build(verbose: bool = False) -> str:
     """Compile `csrc/window_distance.cu` into `kernels/build/` (once per
     source content) and return the shared library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"window_distance-{digest.hexdigest()[:12]}"
-                                  f".so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, SOURCE]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        if verbose:
-            print(r.stdout + r.stderr, end="")
-        os.replace(tmp, lib)   # atomic: concurrent builders race safely
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+    return common.build(SOURCE, verbose)
+
+
+def _declare(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.window_distance_launch.argtypes = [vp] * 13 + [ci] * 14 + [vp]
+    lib.window_distance_launch.restype = ci
+    lib.window_distance_smem_bytes.argtypes = [ci, ci]
+    lib.window_distance_smem_bytes.restype = ctypes.c_size_t
 
 
 def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.window_distance_launch.argtypes = [vp] * 13 + [ci] * 14 + [vp]
-        lib.window_distance_launch.restype = ci
-        lib.window_distance_smem_bytes.argtypes = [ci, ci]
-        lib.window_distance_smem_bytes.restype = ctypes.c_size_t
-        _LIB = lib
-    return _LIB
+    return common.library(SOURCE, _declare)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple,

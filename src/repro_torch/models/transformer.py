@@ -1,0 +1,380 @@
+"""Decoder-LM assembly: PyTorch port of `repro.models.transformer`, the
+global-attention (`"attn"`) block.
+
+An architecture compiles to *segments*: a tuple of block types repeated N
+times, with parameters stacked over the repeat axis.  The JAX package runs
+a segment under `lax.scan`; here it is a Python loop over the layer index
+that indexes views of the stacked tensors.
+
+    dense/vlm/audio:  [(("attn",), L)]
+    llama4 (moe/2):   [(("attn", "moe"), L/2)]
+    arctic (moe+res): [(("moe",), L)]
+    rwkv6:            [(("rwkv",), L)]
+    recurrentgemma:   [(("rec","rec","lattn"), 12), (("rec","rec"), 1)]
+
+This slice runs the attention-only archs (granite-3-2b, qwen1.5-4b,
+qwen1.5-110b, minitron-4b, musicgen-medium, qwen2-vl-7b); the other block
+types raise `NotImplementedError` naming the slice that brings them.
+
+Three execution modes share the block code:
+    train   — full sequence, no cache;
+    prefill — full sequence, emits per-layer cache (stacked over layers);
+    decode  — one token, writes its K/V into the given cache in place and
+              returns that cache.
+
+`use_kernel` (None/"auto", "kernel", "plain"; carried in `Ctx`) reaches
+the two attention kernels, whose wrappers own the device choice: the
+flash kernel for prefill and the decode kernel for each decode step on
+CUDA tensors, their plain versions on CPU tensors.  The JAX package's
+sharding context (`shd`, `_expand_kv` for head-TP) has no counterpart on
+one card: `shd` must be None.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import kvcache, layers
+
+__all__ = ["segments", "init_params", "init_cache", "Ctx", "apply_block",
+           "run_segments", "forward", "prefill", "decode_step", "DecoderLM"]
+
+# the slice of the port that brings each block type this one lacks
+_LATER = {"moe": "the MoE serving slice",
+          "lattn": "the recurrentgemma slice",
+          "rec": "the recurrentgemma slice",
+          "rwkv": "the rwkv6 slice"}
+
+
+def _later(btype: str):
+    if btype in _LATER:
+        return NotImplementedError(
+            f"block type {btype!r} is not ported yet: it comes with "
+            f"{_LATER[btype]}")
+    return ValueError(btype)
+
+
+def _no_shd(shd) -> None:
+    if shd is not None:
+        raise NotImplementedError(
+            "sharding contexts (shd, ShardingPlan) are TPU-mesh code with "
+            "no counterpart on one card; pass shd=None")
+
+
+# ---------------------------------------------------------------------------
+# segment plan
+# ---------------------------------------------------------------------------
+
+def segments(cfg) -> list[tuple[tuple[str, ...], int]]:
+    L = cfg.num_layers
+    if cfg.ssm == "rwkv6":
+        return [(("rwkv",), L)]
+    if cfg.pattern:
+        plen = len(cfg.pattern)
+        body = tuple("lattn" if t == "attn" else t for t in cfg.pattern)
+        segs = [(body, L // plen)]
+        tail = L % plen
+        if tail:
+            segs.append((body[:tail], 1))
+        return segs
+    if cfg.is_moe:
+        if cfg.moe_every == 1:
+            return [(("moe",), L)]
+        pat = tuple("attn" if i < cfg.moe_every - 1 else "moe"
+                    for i in range(cfg.moe_every))
+        return [(pat, L // cfg.moe_every)]
+    return [(("attn",), L)]
+
+
+# ---------------------------------------------------------------------------
+# pytrees of tensors (nested dicts and lists)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _tree_stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_tree_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_block(btype: str, gen: torch.Generator, cfg, device):
+    if btype != "attn":
+        raise _later(btype)
+    d = cfg.d_model
+    return {"ln1": layers.init_rmsnorm(d, device),
+            "ln2": layers.init_rmsnorm(d, device),
+            "attn": layers.init_attention(gen, cfg, device),
+            "mlp": layers.init_mlp(gen, cfg, device=device)}
+
+
+def init_params(cfg, generator: torch.Generator, device="cuda"):
+    """Random parameters from `generator` (a `torch.Generator` on
+    `device`): the JAX package's tree, leaf shapes, dtypes and scales."""
+    dev = resolve_device(device)
+    dt = cfg.torch_dtype
+    params: dict[str, Any] = {}
+    if cfg.embed_inputs:
+        params["embed"] = torch.randn(
+            (cfg.vocab, cfg.d_model), generator=generator, dtype=dt,
+            device=dev) * cfg.d_model ** -0.5
+    segs = []
+    for types, n in segments(cfg):
+        segs.append(_tree_stack(
+            [[_init_block(t, generator, cfg, dev) for t in types]
+             for _ in range(n)]))
+    params["segments"] = segs
+    params["final_norm"] = layers.init_rmsnorm(cfg.d_model, dev)
+    if not cfg.tie_embeddings:
+        params["head"] = torch.randn(
+            (cfg.d_model, cfg.vocab), generator=generator, dtype=dt,
+            device=dev) * cfg.d_model ** -0.5
+    return params
+
+
+def init_cache(cfg, batch: int, length: int, device="cuda"):
+    """Decode cache for a max context of `length` tokens: per segment, per
+    block type, {"k", "v"} of shape (n, batch, length, KH, Dh)."""
+    dev = resolve_device(device)
+    out = []
+    for types, n in segments(cfg):
+        seg = []
+        for t in types:
+            if t not in ("attn", "moe"):
+                raise _later(t)
+            one = kvcache.init_full_cache(cfg, batch, length, dev)
+            seg.append({k: v.expand(n, *v.shape).contiguous()
+                        for k, v in one.items()})
+        out.append(seg)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+class Ctx(NamedTuple):
+    cfg: Any
+    mode: str                    # train | prefill | decode
+    positions: Any               # (B,T) ids, (B,T,3) mrope, or (B,) decode
+    use_kernel: Any = None       # None/"auto" | "kernel" | "plain"
+
+
+def _prefill_cache(cfg, k, v):
+    """Arrange prefill K/V as a decode-ready cache (global attention)."""
+    return {"k": k, "v": v}
+
+
+def _attention(p, x, cache, ctx):
+    cfg = ctx.cfg
+    b, t, _ = x.shape
+    h = layers.rmsnorm(x, p["ln1"])
+    pos = ctx.positions
+    if ctx.mode == "decode":
+        rope_pos = pos[:, None] if cfg.pos == "rope" else \
+            pos[:, None, None].expand(b, 1, 3)
+    else:
+        rope_pos = pos
+    q, k, v = layers.qkv(p["attn"], h, cfg, rope_pos)
+    if ctx.mode == "decode":
+        o, new_cache = kvcache.decode_attention(
+            q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
+    else:
+        o = layers.flash_attention(q, k, v, causal=True,
+                                   use_kernel=ctx.use_kernel)
+        new_cache = None
+        if ctx.mode == "prefill":
+            new_cache = _prefill_cache(cfg, k, v)
+    o = o.reshape(b, t, -1)
+    return o @ p["attn"]["wo"], new_cache
+
+
+def apply_block(btype, p, x, cache, ctx):
+    if btype != "attn":
+        raise _later(btype)
+    cfg = ctx.cfg
+    o, new_cache = _attention(p, x, cache, ctx)
+    x = x + o
+    h = layers.rmsnorm(x, p["ln2"])
+    x = x + layers.apply_mlp(p["mlp"], h, cfg)
+    return x, new_cache, {}
+
+
+# ---------------------------------------------------------------------------
+# segment loop
+# ---------------------------------------------------------------------------
+
+def _layer(tree, i: int):
+    """Layer i's view of a tree stacked over layers."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def run_segments(params, x, caches, ctx):
+    """caches: None (train/prefill) or list matching segments (decode,
+    written in place).  Returns (x, caches, aux): prefill's caches are
+    stacked over layers, decode's are the caches given."""
+    cfg = ctx.cfg
+    all_caches, all_aux = [], []
+    for si, (types, n) in enumerate(segments(cfg)):
+        seg_params = params["segments"][si]
+        seg_cache = caches[si] if caches is not None else None
+        per_layer = []
+        for i in range(n):
+            ncs = []
+            for j, bt in enumerate(types):
+                c = _layer(seg_cache[j], i) if seg_cache is not None \
+                    else None
+                x, nc, _ = apply_block(bt, _layer(seg_params[j], i), x, c,
+                                       ctx)
+                ncs.append(nc)
+            per_layer.append(ncs)
+        if ctx.mode == "prefill":
+            all_caches.append(_tree_stack(per_layer))
+        elif ctx.mode == "decode":
+            all_caches.append(seg_cache)
+        else:
+            all_caches.append([None] * len(types))
+        all_aux.append([{} for _ in types])
+    return x, all_caches, all_aux
+
+
+# ---------------------------------------------------------------------------
+# top level: forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _on_device(params, batch) -> dict:
+    dev = params["final_norm"].device
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _embed_in(cfg, params, batch, ctx):
+    if cfg.embed_inputs:
+        return params["embed"][batch["tokens"].long()]
+    return batch["embeds"].to(cfg.torch_dtype)
+
+
+def _positions_for(cfg, batch, t):
+    if cfg.pos == "mrope":
+        return batch["positions"]
+    x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    return torch.arange(t, device=x.device)[None, :].expand(x.shape[0], t)
+
+
+def _logits(cfg, params, x, ctx):
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].T
+    return x @ head
+
+
+def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
+    """Full-sequence pass.  Returns (final-normed hidden (B,T,D), caches,
+    aux, ctx)."""
+    _no_shd(shd)
+    batch = _on_device(params, batch)
+    t = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
+    ctx = Ctx(cfg=cfg, mode=mode, positions=_positions_for(cfg, batch, t),
+              use_kernel=use_kernel)
+    x = _embed_in(cfg, params, batch, ctx)
+    x, caches, aux = run_segments(params, x, None, ctx)
+    x = layers.rmsnorm(x, params["final_norm"])
+    return x, caches, aux, ctx
+
+
+def prefill(cfg, params, batch, shd=None, use_kernel=None):
+    """Returns (last-token logits (B,1,V), decode-ready cache, aux)."""
+    x, caches, aux, ctx = forward(cfg, params, batch, shd, mode="prefill",
+                                  use_kernel=use_kernel)
+    x = x[:, -1:]
+    return _logits(cfg, params, x, ctx), caches, aux
+
+
+def decode_step(cfg, params, batch, cache, shd=None, use_kernel=None):
+    """One token for every sequence.  batch: tokens/embeds (B,1,...) +
+    positions (B,).  Writes the token's K/V into `cache` in place and
+    returns (logits (B,1,V), that cache, aux)."""
+    _no_shd(shd)
+    batch = _on_device(params, batch)
+    ctx = Ctx(cfg=cfg, mode="decode",
+              positions=batch["positions"].to(torch.int32),
+              use_kernel=use_kernel)
+    x = _embed_in(cfg, params, batch, ctx)
+    x, caches, aux = run_segments(params, x, cache, ctx)
+    x = layers.rmsnorm(x, params["final_norm"])
+    return _logits(cfg, params, x, ctx), caches, aux
+
+
+# ---------------------------------------------------------------------------
+# the same model as an nn.Module
+# ---------------------------------------------------------------------------
+
+class _Tree(nn.Module):
+    """A nested dict/list of tensors held as parameters (frozen), with
+    sub-dicts and lists as submodules named by key or index."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._kind = "list" if isinstance(tree, list) else "dict"
+        items = enumerate(tree) if isinstance(tree, list) else tree.items()
+        self._keys = []
+        for k, v in items:
+            name = str(k)
+            self._keys.append(k)
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(name, _Tree(v))
+
+    def tree(self):
+        vals = []
+        for k in self._keys:
+            v = getattr(self, str(k))
+            vals.append(v.tree() if isinstance(v, _Tree) else v.data)
+        if self._kind == "list":
+            return vals
+        return dict(zip(self._keys, vals))
+
+
+class DecoderLM(nn.Module):
+    """The decoder as an `nn.Module`: `params` (the functional tree, e.g.
+    from `init_params` or `params_from_numpy`) held as parameters with
+    their JAX nesting as names (`segments.0.0.attn.wq`, ...).  `params()`
+    gives the tree back for the functional entry points."""
+
+    def __init__(self, cfg, params):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _Tree(params)
+
+    def params(self):
+        return self.tree.tree()
+
+    def forward(self, batch, use_kernel=None):
+        """Logits (B, T, V) of a full sequence."""
+        x, _, _, ctx = forward(self.cfg, self.params(), batch,
+                               use_kernel=use_kernel)
+        return _logits(self.cfg, self.params(), x, ctx)
+
+    def prefill(self, batch, use_kernel=None):
+        return prefill(self.cfg, self.params(), batch, use_kernel=use_kernel)
+
+    def decode_step(self, batch, cache, use_kernel=None):
+        return decode_step(self.cfg, self.params(), batch, cache,
+                           use_kernel=use_kernel)

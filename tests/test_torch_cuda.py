@@ -1,14 +1,23 @@
-"""Card-only checks of the port's CUDA window kernel against its plain
-PyTorch version (bit-for-bit), plus the sweep and resume paths that launch
-it.  Marked `cuda`; every test skips without a CUDA device.  On a machine
-with a card: `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
+"""Card-only checks of the port's CUDA kernels against their plain
+PyTorch versions: the window kernel bit for bit, plus the sweep and resume
+paths that launch it; the flash and decode attention kernels within the
+tolerances of test_kernels.py (2e-5 in f32, 2e-2 in bf16), plus the model
+path that launches them.  Marked `cuda`; every test skips without a CUDA
+device.  On a machine with a card:
+`PYTHONPATH=src python -m pytest -q -m cuda tests/`.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import base as cb
 from repro_torch.core import isa, simulator
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import window_distance as wd
+from repro_torch.models import transformer
 
 pytestmark = pytest.mark.cuda
 
@@ -122,3 +131,104 @@ def test_kernel_refuses_what_shared_memory_cannot_hold(dev):
     with pytest.raises(ValueError, match="shared memory"):
         wd.window_grid(tags, tags, one, one, one.reshape(1, 1), one - 1, 0,
                        0, num_tags=10_000, total_steps=4, window=4)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _assert_close(got, want, dtype):
+    tol = ATOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,h,kh,dh,window", [
+    (1, 32, 8, 64, 0), (63, 8, 8, 64, 0), (64, 8, 2, 128, 0),
+    (65, 8, 1, 64, 0), (1000, 32, 8, 64, 0), (300, 4, 1, 128, 50),
+    (129, 8, 2, 64, 64)])
+def test_flash_kernel_matches_plain(dev, dtype, t, h, kh, dh, window):
+    gen = torch.Generator(device=dev).manual_seed(t * 7 + dh)
+    q = _randn(gen, (2, t, h, dh), dtype, dev)
+    k = _randn(gen, (2, t, kh, dh), dtype, dev)
+    v = _randn(gen, (2, t, kh, dh), dtype, dev)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, window=window)
+    assert fa.flash_attention.launches == before + 1
+    _assert_close(got, fa.flash_attention_plain(q, k, v, window=window),
+                  dtype)
+
+
+def test_flash_kernel_reads_strided_views(dev):
+    """q/k/v as views of one fused (B, T, H + 2 KH, D) projection."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    fused = _randn(gen, (1, 77, 12, 64), torch.float32, dev)
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    _assert_close(fa.flash_attention(q, k, v),
+                  fa.flash_attention_plain(q, k, v), torch.float32)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="recurrentgemma"):
+        fa.flash_attention(q, q, q, q_offset=8)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,dh", [
+    (4, 256, 8, 8, 64), (4, 2048, 32, 8, 64), (4, 300, 8, 1, 128),
+    (4, 128, 4, 2, 128)])
+def test_decode_kernel_matches_plain(dev, dtype, b, s, h, kh, dh):
+    gen = torch.Generator(device=dev).manual_seed(s + h)
+    q = _randn(gen, (b, h, dh), dtype, dev)
+    kc = _randn(gen, (b, s, kh, dh), dtype, dev)
+    vc = _randn(gen, (b, s, kh, dh), dtype, dev)
+    kv_len = torch.tensor([0, 1, s, s // 3 + 5], dtype=torch.int32,
+                          device=dev)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, kc, vc, kv_len)
+    assert da.decode_attention.launches == before + 1
+    assert not got[0].any(), "kv_len == 0 gives zeros"
+    _assert_close(got, da.decode_attention_plain(q, kc, vc, kv_len), dtype)
+
+
+def test_model_on_card_matches_plain_and_launches_both_kernels(dev):
+    """A two-layer granite at smoke width but head dim 64: prefill and
+    three decode steps through the kernels equal the plain path."""
+    cb.load_all()
+    cfg = dataclasses.replace(cb.get_config("granite-3-2b").smoke(),
+                              head_dim=64)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    outs = {}
+    for mode in ("auto", "plain"):
+        f0, d0 = fa.flash_attention.launches, da.decode_attention.launches
+        logits, cache, _ = transformer.prefill(
+            cfg, params, {"tokens": tokens[:, :37]}, use_kernel=mode)
+        cache = [[{n: torch.nn.functional.pad(c[n], (0, 0, 0, 0, 0, 3))
+                   for n in c} for c in seg] for seg in cache]
+        steps = [logits]
+        for i in range(37, 40):
+            logits, cache, _ = transformer.decode_step(
+                cfg, params, {"tokens": tokens[:, i:i + 1],
+                              "positions": np.full((2,), i, np.int32)},
+                cache, use_kernel=mode)
+            steps.append(logits)
+        launched = (fa.flash_attention.launches - f0,
+                    da.decode_attention.launches - d0)
+        assert launched == ((2, 6) if mode == "auto" else (0, 0))
+        outs[mode] = torch.cat(steps, 1)
+    _assert_close(outs["auto"], outs["plain"], torch.float32)

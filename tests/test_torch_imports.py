@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import base as cb
 from repro_torch.core import isa, simulator, stackdist_interleaved
+from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.kernels import window_distance
+from repro_torch.models import convert, kvcache, transformer
+from repro_torch.serve import engine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -55,7 +59,11 @@ def test_no_jax_or_reference_import(path):
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "repro_torch.kernels.window_distance" in mods
+    for m in ("kernels.window_distance", "kernels.flash_attention",
+              "kernels.decode_attention", "configs.base", "models.layers",
+              "models.kvcache", "models.transformer", "models.convert",
+              "serve.batching", "serve.engine", "launch.serve"):
+        assert f"repro_torch.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['jaxlib'] = None\n"
@@ -125,3 +133,41 @@ def test_forced_kernel_on_cpu_tensors_raises():
             num_tags=10, total_steps=100, window=16, use_kernel="kernel")
     assert (window_distance.window_grid.launches,
             window_distance.window_cell.launches) == before
+
+
+def test_model_entry_points_default_to_cuda_and_raise_without_a_card(
+        no_cuda):
+    cb.load_all()
+    cfg = cb.get_config("granite-3-2b").smoke()
+    gen = torch.Generator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_numpy(convert.numpy_params(cfg, 0))
+    params = transformer.init_params(cfg, gen, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.model_batcher(cfg, params, 2, 16)
+    cache = transformer.init_cache(cfg, 2, 16, device="cpu")
+    assert cache[0][0]["k"].device.type == "cpu"
+
+
+def test_forced_attention_kernels_on_cpu_tensors_raise():
+    q = torch.zeros((1, 4, 4, 64))
+    kv = torch.zeros((1, 4, 2, 64))
+    before = (flash_attention.flash_attention.launches,
+              decode_attention.decode_attention.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q, kv, kv, use_kernel="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention.decode_attention(
+            q[:, 0], kv, kv, torch.ones(1, dtype=torch.int32),
+            use_kernel=True)
+    cache = {"k": kv.clone(), "v": kv.clone()}
+    with pytest.raises(NotImplementedError, match="one card"):
+        kvcache.decode_attention(q[:, :1], cache, kv[:, :1], kv[:, :1],
+                                 torch.zeros(1, dtype=torch.int32), None,
+                                 mesh=object())
+    assert (flash_attention.flash_attention.launches,
+            decode_attention.decode_attention.launches) == before

@@ -1,0 +1,239 @@
+"""The port's decoder (`repro_torch.models.transformer`) against the JAX
+package's (`repro.models.transformer`) for every attention-only arch at
+smoke size, in f32: the same numpy weights (`convert.numpy_params`, with
+the norm scales and biases perturbed so they count) and inputs into both;
+prefill logits, the prefill cache and 8 teacher-forced decode steps
+(logits and cache) agree to 1e-4 (f32 rounding of different summation
+orders over 2 layers).  Plus the port's own golden check: prefill then
+decode reproduces the full-sequence logits, as test_models.py holds the
+JAX package to."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_asserts  # noqa: F401  (one torch thread under xdist)
+from repro.configs import base as jcb
+from repro.models import transformer as jt
+from repro_torch.configs import base as tcb
+from repro_torch.models import convert
+from repro_torch.models import transformer as tt
+
+jax.config.update("jax_default_matmul_precision", "float32")
+jcb.load_all()
+tcb.load_all()
+
+ATTN_ARCHS = ["granite-3-2b", "qwen1.5-4b", "qwen1.5-110b", "minitron-4b",
+              "musicgen-medium", "qwen2-vl-7b"]
+TOL = 1e-4
+B, T0, STEPS = 2, 9, 8
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _tree(cfg, seed=0):
+    """numpy_params with every zero leaf (norm scales, biases) perturbed."""
+    rng = np.random.default_rng(seed + 100)
+
+    def bump(a):
+        return a if a.any() else \
+            (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map(bump, convert.numpy_params(cfg, seed))
+
+
+def _both(arch):
+    jcfg, tcfg = jcb.get_config(arch).smoke(), tcb.get_config(arch).smoke()
+    tree = _tree(tcfg)
+    return (jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+            tcfg, convert.params_from_numpy(tree, "cpu"))
+
+
+def _batch(cfg, b, t, seed=1, text_positions=False):
+    """Random inputs; M-RoPE positions get a random offset per stream,
+    unless `text_positions` (t = h = w, what a decode step feeds)."""
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if cfg.embed_inputs:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (b, t)).astype(np.int32)
+    else:
+        batch["embeds"] = rng.standard_normal((b, t, cfg.d_model)).astype(
+            np.float32)
+    if cfg.pos == "mrope":
+        pos = np.arange(t)[None, :, None] + rng.integers(0, 3, (b, 1, 3)) * \
+            (not text_positions)
+        batch["positions"] = pos.astype(np.int32)
+    return batch
+
+
+def _step(cfg, batch, i):
+    """Decode-step inputs for position i of `batch`."""
+    b = (batch.get("tokens", batch.get("embeds"))).shape[0]
+    db = {"positions": np.full((b,), i, np.int32)}
+    key = "tokens" if cfg.embed_inputs else "embeds"
+    db[key] = batch[key][:, i:i + 1]
+    return db
+
+
+def _pad_jax(cache, length):
+    return [[{n: jnp.pad(c[n], ((0, 0), (0, 0), (0, length - c[n].shape[2]),
+                                (0, 0), (0, 0))) for n in c} for c in seg]
+            for seg in cache]
+
+
+def _pad_torch(cache, length):
+    return [[{n: torch.nn.functional.pad(
+        c[n], (0, 0, 0, 0, 0, length - c[n].shape[2])) for n in c}
+        for c in seg] for seg in cache]
+
+
+def _cache_close(tcache, jcache):
+    for tseg, jseg in zip(tcache, jcache, strict=True):
+        for tc, jc in zip(tseg, jseg, strict=True):
+            for n in ("k", "v"):
+                _close(tc[n], jc[n])
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    jcfg, jp, tcfg, tp = _both(arch)
+    batch = _batch(tcfg, B, T0 + STEPS)
+    pre = {k: v[:, :T0] for k, v in batch.items()}
+    jl, jcache, _ = jt.prefill(jcfg, jp, jax.tree_util.tree_map(
+        jnp.asarray, pre))
+    tl, tcache, _ = tt.prefill(tcfg, tp, pre)
+    assert tl.shape == (B, 1, tcfg.vocab)
+    _close(tl, jl)
+    _cache_close(tcache, jcache)
+
+    jcache, tcache = _pad_jax(jcache, T0 + STEPS), _pad_torch(tcache,
+                                                               T0 + STEPS)
+    for i in range(T0, T0 + STEPS):
+        db = _step(tcfg, batch, i)
+        jl, jcache, _ = jt.decode_step(
+            jcfg, jp, jax.tree_util.tree_map(jnp.asarray, db), jcache)
+        tl, tcache, _ = tt.decode_step(tcfg, tp, db, tcache)
+        _close(tl, jl)
+    _cache_close(tcache, jcache)
+
+
+def test_jax_cache_carries_across():
+    """Decoding from the JAX package's prefill cache, carried over with
+    `cache_from_numpy`, gives the JAX package's decode logits."""
+    jcfg, jp, tcfg, tp = _both("granite-3-2b")
+    batch = _batch(tcfg, B, T0 + 1)
+    _, jcache, _ = jt.prefill(jcfg, jp, {"tokens": jnp.asarray(
+        batch["tokens"][:, :T0])})
+    jcache = _pad_jax(jcache, T0 + 1)
+    tcache = convert.cache_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jcache), "cpu")
+    db = _step(tcfg, batch, T0)
+    jl, jcache, _ = jt.decode_step(
+        jcfg, jp, jax.tree_util.tree_map(jnp.asarray, db), jcache)
+    tl, tcache, _ = tt.decode_step(tcfg, tp, db, tcache)
+    _close(tl, jl)
+    _cache_close(tcache, jcache)
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_prefill_decode_golden_consistency(arch):
+    """Teacher-forced decode reproduces the full-sequence logits (the
+    check test_models.py holds the JAX package to, at its 2e-3)."""
+    cfg = tcb.get_config(arch).smoke()
+    params = tt.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    b, t = 2, 16
+    batch = _batch(cfg, b, t, text_positions=True)
+    x, _, _, ctx = tt.forward(cfg, params, batch)
+    full = tt._logits(cfg, params, x, ctx)
+    t0 = t // 2
+    logits0, cache, _ = tt.prefill(
+        cfg, params, {k: v[:, :t0] for k, v in batch.items()})
+    _close(logits0[:, 0], full[:, t0 - 1], 2e-3)
+    cache = _pad_torch(cache, t)
+    for i in range(t0, t):
+        logits, cache, _ = tt.decode_step(cfg, params, _step(cfg, batch, i),
+                                          cache)
+        _close(logits[:, 0], full[:, i], 2e-3)
+
+
+def _shapes(tree):
+    return jax.tree_util.tree_map(lambda a: tuple(a.shape), tree)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen1.5-4b",
+                                  "musicgen-medium"])
+def test_init_params_tree_matches_jax(arch):
+    """Same nesting, leaf shapes and dtypes as the JAX package's
+    init_params, both from init_params and from numpy_params."""
+    jcfg = dataclasses.replace(jcb.get_config(arch).smoke(),
+                               dtype="bfloat16")
+    tcfg = dataclasses.replace(tcb.get_config(arch).smoke(),
+                               dtype="bfloat16")
+    want = jt.init_params(jcfg, jax.random.PRNGKey(0))
+    got = tt.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    loaded = convert.params_from_numpy(convert.numpy_params(tcfg, 0), "cpu",
+                                       tcfg.torch_dtype)
+    jshape = _shapes(jax.tree_util.tree_map(np.asarray, want))
+    for tree in (got, loaded):
+        tshape = tt.tree_map(lambda a: tuple(a.shape), tree)
+        assert jax.tree_util.tree_structure(tshape) == \
+            jax.tree_util.tree_structure(jshape)
+        assert tshape == jshape
+        jdt = jax.tree_util.tree_leaves(
+            jax.tree_util.tree_map(lambda a: str(a.dtype), want))
+        tdt = jax.tree_util.tree_leaves(
+            tt.tree_map(lambda a: str(a.dtype).split(".")[-1], tree))
+        assert tdt == jdt
+
+
+def test_jax_bf16_params_carry_across_exactly():
+    cfg = jcb.get_config("granite-3-2b").smoke()
+    jp = jt.init_params(dataclasses.replace(cfg, dtype="bfloat16"),
+                        jax.random.PRNGKey(3))
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   "cpu")
+    for j, t in zip(jax.tree_util.tree_leaves(jp),
+                    jax.tree_util.tree_leaves(
+                        tt.tree_map(lambda a: a, tp))):
+        assert t.dtype == (torch.bfloat16 if j.dtype == jnp.bfloat16
+                           else torch.float32)
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(j, np.float32))
+
+
+def test_decoder_module_holds_the_tree():
+    cfg = tcb.get_config("granite-3-2b").smoke()
+    params = tt.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    model = tt.DecoderLM(cfg, params)
+    names = dict(model.named_parameters())
+    assert "tree.segments.0.0.attn.wq" in names
+    assert len(names) == len(jax.tree_util.tree_leaves(
+        tt.tree_map(lambda a: 0, params)))
+    batch = _batch(cfg, 2, 6)
+    x, _, _, ctx = tt.forward(cfg, params, batch)
+    assert torch.equal(model(batch), tt._logits(cfg, params, x, ctx))
+    got, _, _ = model.prefill(batch)
+    want, _, _ = tt.prefill(cfg, params, batch)
+    assert torch.equal(got, want)
+
+
+def test_later_blocks_and_sharding_raise():
+    for arch, slice_name in (("arctic-480b", "MoE"),
+                             ("recurrentgemma-9b", "recurrentgemma"),
+                             ("rwkv6-7b", "rwkv6")):
+        cfg = tcb.get_config(arch).smoke()
+        with pytest.raises(NotImplementedError, match=slice_name):
+            tt.init_params(cfg, torch.Generator(), "cpu")
+    cfg = tcb.get_config("granite-3-2b").smoke()
+    params = tt.init_params(cfg, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="one card"):
+        tt.prefill(cfg, params, _batch(cfg, 1, 4), shd=object())
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.prefill(cfg, params, _batch(cfg, 1, 4), use_kernel="kernel")
