@@ -5,7 +5,7 @@ Run it from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the port's three kernels from `src/repro_torch/kernels/csrc/`
+It builds the port's four kernels from `src/repro_torch/kernels/csrc/`
 with `nvcc` (one process per source, all started together).
 
 The simulator slice: it holds both entry points of the window kernel
@@ -31,9 +31,26 @@ slice, both kernels' launches counted), and times both kernels at the
 serving shapes beside their bound, their plain versions and PyTorch's
 `scaled_dot_product_attention` (timed only, never on the path).
 
+The MoE slice: it holds the grouped-FFN kernel's two entry points
+(`moe_gmm`, `moe_gmm_skip`) against their plain versions (f32 and bf16,
+test_kernels.py's shapes, ragged and ungated cases, empty experts exact
+zeros, and both model-path shapes at full width); runs arctic-480b at
+full width, 1 layer and 8 experts, f32, through the kernels and holds 9
+steps of logits and every step's expert load to the JAX package's
+(constants below, from `tests/jax_anchor.py`); checks at full width, 2
+layers and all 128 experts in bf16 that the kernel path equals the plain
+one; serves 8 requests of that model through `repro_torch.launch.serve`
+with its expert-slot half (the main path of this slice, both entry
+points' launches counted); runs the paper-technique setting of
+`benchmarks/perf_slot_decode.py` (4 tenants, 16 expert shards, slots x
+slot-hit bias) through `SlotServeEngine`; and times both entry points at
+the serving shapes beside their bound, their plain versions and three
+`torch.bmm` calls (timed only, never on the path).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
-the `kernels` line (launches on the main path, times, bound, error) and
+the `kernels` line (all six kernels: launches on their slice's main
+path, times, bound, error) and
 `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the port's sources beside it, the script exits
@@ -145,6 +162,95 @@ JAX_ANCHOR = {
         0.2129],
     "tokens_sha1": "ee35da3e2d8d697c732889a52cdc4d1dd4dbc008",
 }
+MOE_JAX_ANCHOR = {
+    "ids": [
+        57, 1086, 1246, 1879, 2989, 5587, 8198, 9711, 10445, 11290,
+        11463, 13311, 13433, 14199, 15026, 15820, 15993, 16612, 18456,
+        21603, 22432, 23256, 23784, 24076, 25395, 25491, 25519, 27361,
+        27933, 28944, 29980, 31666],
+    "logits": [
+        [2.237372, -0.5908996, 1.538924, 0.359022, -0.3612966,
+        -0.3892732, 1.586985, 1.274173, -0.2702395, 0.2624988,
+        -1.284545, -0.8029127, -0.8912312, 0.9399121, 0.1298637,
+        -1.390414, 0.2765056, -0.251314, -0.9560781, -1.705454,
+        0.3042816, 0.4699914, -0.3810716, -1.004022, 0.2433458,
+        -0.140947, -1.578435, -0.5262463, 1.499557, -0.9746365,
+        -1.251054, 1.028966],
+        [0.5115263, -0.2004971, 1.017103, -1.654363, 2.906305,
+        0.9620841, 0.01280197, -0.000972991, -1.742161, 1.694141,
+        -1.090039, -1.47174, -0.124833, -1.819838, -0.08808596,
+        -2.123774, 0.7631221, -0.1642651, -1.461378, -0.3037586,
+        1.695498, 2.327598, -1.187647, -0.4122697, 0.08682809,
+        1.04992, 0.1732143, 0.1706952, 0.8064168, 1.824742, 0.5075678,
+        -0.07037106],
+        [1.177049, -0.2334222, -0.4929495, 1.655165, -0.04446586,
+        1.55529, -0.3794141, 1.299629, -0.3445933, 1.435796, 0.242186,
+        -0.3544826, 0.2899604, -1.601366, -1.078171, -1.073672,
+        1.876868, -0.9043599, -0.4444573, -1.756056, 0.3117967,
+        0.8685732, 0.7599143, -2.075164, -0.01686722, -0.6273391,
+        -0.6572786, 0.3107998, -1.149142, -0.4812473, -1.183639,
+        -1.216271],
+        [0.3784321, -0.5713495, -0.8212148, 0.2763456, 1.351708,
+        1.349309, 0.01757317, 0.5932599, -1.521479, 0.3398908,
+        -1.383098, -0.1889763, 0.4767704, -2.311808, 0.1415271,
+        -1.285247, 1.603681, 1.328449, 0.6304212, -1.011408,
+        -1.304453, 0.5787185, 0.3901258, -1.002911, -0.7787659,
+        -0.03727992, -0.3668339, 1.582669, -0.1667276, -0.4137266,
+        -1.122325, 0.08776538],
+        [0.4245566, 0.3980561, -0.2081905, -0.7370323, 2.221416,
+        -1.015319, 0.6627094, -0.6917573, 1.012281, -0.164768,
+        0.450792, 0.08895432, 0.4482795, -1.177007, -1.520356,
+        -0.3172019, -0.4427914, -1.174531, -1.09527, 0.7137988,
+        -0.01267156, 1.57408, -0.7462069, -1.395719, 0.1943417,
+        -0.05900409, -0.4492127, 0.7158381, -1.056088, -1.078024,
+        -0.1217779, 1.77741],
+        [-0.3780286, -1.408537, -1.027951, -1.002822, -1.58245,
+        1.524794, 0.4607726, 0.8846921, 1.84854, 0.2505696,
+        -0.2982658, 0.2907114, -1.518565, -1.423737, 2.156719,
+        -0.4107226, 1.077631, -1.414985, -0.3633354, 0.2384803,
+        -0.4342262, 0.8698977, -0.344696, -0.8681459, 0.05746187,
+        1.315602, -0.5352636, 0.1087202, -0.4053726, 0.4162572,
+        -1.147899, -0.660727],
+        [0.115905, 0.6694766, -0.2697161, 1.090019, 1.530983,
+        -0.9843925, -0.04303294, -1.063346, 0.2344802, 0.2614882,
+        -0.1375142, -0.03146726, -0.8917374, -0.4366609, 0.2833623,
+        0.6808513, 0.1026595, 0.3995705, -0.6057801, 1.205557,
+        -0.129851, 1.372784, -0.070142, -0.08950985, -0.5544121,
+        0.7751527, -0.6003513, 0.492048, -1.0278, 0.8568924, -0.06155,
+        0.8348945],
+        [-0.7716243, 0.272666, 0.84279, -0.1709425, 0.6942478,
+        0.5476964, -1.151013, -0.07531491, -0.6825429, -0.4188038,
+        -0.193828, 0.7448609, -1.063637, 0.5698252, -1.300678,
+        -2.452104, -0.570408, 0.3026768, 0.1141389, 0.3041827,
+        -0.359109, -0.05322567, 0.4804122, -0.7519646, 0.04081622,
+        0.4965396, 0.1049546, 0.551921, 1.461323, 0.2436262,
+        0.9090801, -0.2603284],
+        [0.2203759, -1.368036, -1.487612, 1.647262, 1.072437, 1.747789,
+        0.8843895, -0.7102207, 1.142558, -0.2184379, 0.5015211,
+        -0.2498745, 1.309563, 1.064789, 0.08567041, 0.4076215,
+        1.131042, -1.158099, -1.04966, -0.1497414, -0.5491714,
+        0.8693866, -0.8197592, -0.1994051, -0.3960609, 0.04666168,
+        -1.425079, 0.4913451, -0.3197488, -0.2270255, -0.1887621,
+        -0.4520103],
+    ],
+    "argmax": [
+        16436, 30333, 5479, 22146, 23438, 2974, 10204, 3091, 20658],
+    "gap": [
+        0.2793, 0.19, 0.02946, 0.4893, 0.2497, 0.1812, 0.2032, 0.377,
+        0.0513],
+    "expert_load": [
+        [32, 18, 14, 29, 10, 30, 18, 32],
+        [0, 0, 0, 1, 0, 0, 0, 1],
+        [0, 0, 0, 0, 1, 0, 0, 1],
+        [0, 0, 0, 0, 1, 0, 0, 1],
+        [0, 0, 0, 0, 0, 0, 1, 1],
+        [1, 0, 0, 1, 0, 0, 0, 0],
+        [1, 0, 0, 0, 0, 0, 0, 1],
+        [0, 0, 0, 1, 0, 0, 1, 0],
+        [0, 0, 0, 0, 1, 0, 0, 1],
+    ],
+    "tokens_sha1": "b566d2a65ceecfa73e1546c4097358da29f688cc",
+}
 # the anchor's logits are f32 on the card against f32 on the JAX
 # package's CPU run: 2 layers of d 2048 / ff 8192 products in another
 # summation order leave ~1e-5; the argmax must agree wherever the JAX
@@ -152,6 +258,7 @@ JAX_ANCHOR = {
 ANCHOR_TOL = 1e-3
 # kernel against plain version: test_kernels.py's tolerances
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GMM_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # bf16 at full depth: 8 significant bits (unit roundoff 3.9e-3) re-rounded
 # by 40 residual layers of matmuls whose shapes (and so summation orders)
 # differ between the two paths compared: a random walk of ~sqrt(80) x
@@ -287,16 +394,18 @@ def phase_build() -> None:
     """nvcc on every kernel source at once, one process each."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import window_distance as wd
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futs = {name: pool.submit(mod.build, True) for name, mod in
                 (("window_distance", wd), ("flash_attention", fa),
-                 ("decode_attention", da))}
+                 ("decode_attention", da), ("moe_gmm", gmm))}
         libs = {name: os.path.relpath(f.result(), ROOT)
                 for name, f in futs.items()}
     secs = round(time.perf_counter() - t0, 3)
     emit("build", seconds=secs, library=libs.pop("window_distance"))
+    emit("build_moe", seconds=secs, library=libs.pop("moe_gmm"))
     emit("build_attention", seconds=secs, libraries=libs)
 
 
@@ -628,10 +737,11 @@ ATTN_REPLACES = {
 FLASH_CASES = (  # (B, T, H, KH, D, window): prompt lengths, GQA g 1/4, MQA
     (1, 1, 32, 8, 64, 0), (2, 63, 8, 8, 64, 0), (1, 64, 32, 8, 64, 0),
     (2, 65, 8, 2, 128, 0), (1, 1000, 32, 8, 64, 0), (2, 300, 8, 1, 128, 0),
-    (1, 257, 8, 2, 64, 100), (2, 129, 4, 4, 128, 64))
+    (1, 257, 8, 2, 64, 100), (2, 129, 4, 4, 128, 64),
+    (1, 1000, 56, 8, 128, 0), (1, 333, 40, 8, 128, 0))  # G 7 arctic, 5 llama4
 DECODE_CASES = (  # (B, S, H, KH, D)
     (4, 2048, 32, 8, 64), (4, 300, 8, 8, 64), (4, 256, 8, 1, 128),
-    (4, 128, 16, 4, 128))
+    (4, 128, 16, 4, 128), (4, 2048, 56, 8, 128), (4, 777, 40, 8, 128))
 SERVE = dict(num_requests=16, batch=8, max_len=2048, new_tokens=64,
              prompt_len=(100, 1500))
 
@@ -675,10 +785,13 @@ def phase_attention_vs_plain(dev, errs: dict) -> None:
     for (name, _), err in worst.items():
         key = f"{name}_attention"
         errs[key] = max(errs[key], err)
+    lib = da.common.library(da.SOURCE, da._declare)
     emit("attention_vs_plain", flash_cases=len(FLASH_CASES),
          decode_cases=len(DECODE_CASES), dtypes=["float32", "bfloat16"],
          tolerance=ATTN_TOL, max_abs_err={f"{n} {d}": e for (n, d), e in
-                                           worst.items()}, match=True)
+                                           worst.items()}, match=True,
+         decode_smem_bytes={f"G={g} D=128": lib.decode_attention_smem_bytes(
+             g, 128) for g in (4, 5, 7)})
 
 
 def _granite(**kw):
@@ -835,9 +948,10 @@ def phase_model_serve(dev) -> dict:
 
 def _kernel_ms(prof) -> dict:
     """Device milliseconds of the kernels a torch.profiler run saw, summed
-    by kind (the two attention kernels, GEMMs, everything else)."""
-    kinds = dict.fromkeys(("flash_attention", "decode_attention", "gemm",
-                           "other"), 0.0)
+    by kind (the attention kernels, the two grouped-FFN entry points,
+    GEMMs, everything else)."""
+    kinds = dict.fromkeys(("flash_attention", "decode_attention", "moe_gmm",
+                           "moe_gmm_skip", "gemm", "other"), 0.0)
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -849,6 +963,10 @@ def _kernel_ms(prof) -> dict:
             kind = "flash_attention"
         elif "decode_kernel" in name:
             kind = "decode_attention"
+        elif "moe_gmm_skip_kernel" in name:
+            kind = "moe_gmm_skip"
+        elif "moe_gmm_kernel" in name:
+            kind = "moe_gmm"
         elif any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass")):
             kind = "gemm"
         else:
@@ -858,18 +976,25 @@ def _kernel_ms(prof) -> dict:
 
 
 def phase_serve_profile(dev) -> None:
+    """Where a granite-3-2b serving step's time goes (`profile_serving`)."""
+    from repro_torch.models import transformer
+    cfg = _granite()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    profile_serving(dev, cfg, params, "serve_profile")
+    del params
+
+
+def profile_serving(dev, cfg, params, prefix: str) -> None:
     """Where a serving step's time goes, at the serving shapes: host wall
     time of an admission step (8 prompts prefilled, then one decode) and
     of 8 steady decode steps, without the profiler; then the same windows
     under `torch.profiler` for the device time of each kind of kernel.
-    The device's idle share is 1 - device time / unprofiled wall time."""
+    The device's idle share is 1 - device time / unprofiled wall time.
+    One line each, `<prefix>_admission` and `<prefix>_decode`."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
     from repro_torch.serve.engine import model_batcher
-    cfg = _granite()
-    params = transformer.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev)
     reqs = lambda: serve.requests(cfg, SERVE["batch"], 24,
                                   SERVE["prompt_len"], seed=1)
     prompt_tokens = sum(len(r.prompt) for r in reqs())
@@ -905,14 +1030,14 @@ def phase_serve_profile(dev) -> None:
         busy = sum(kinds.values())
         # a profiler that sees no device time measures nothing: say so
         # rather than report an idle share of 1
-        emit(f"serve_profile_{name}", batch=SERVE["batch"],
+        emit(f"{prefix}_{name}", arch=cfg.name, layers=cfg.num_layers,
+             batch=SERVE["batch"],
              prompt_tokens=prompt_tokens if name == "admission" else 0,
              wall_ms_per_step=wall_ms,
              traced_wall_ms_per_step=traced[name][0],
              device_ms_per_step=busy if busy > 0 else None,
              idle_share=1.0 - busy / wall_ms if busy > 0 else None,
              device_ms_by_kind=kinds if busy > 0 else None)
-    del params
 
 
 def _sdpa(q, k, v, **kw):
@@ -997,6 +1122,443 @@ def phase_time_attention(dev, errs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE slice: the grouped-FFN kernel, arctic-480b, expert slots
+# ---------------------------------------------------------------------------
+
+MOE_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
+MOE_REPLACES = {"moe_gmm": "src/repro/kernels/moe_gmm.py:198",
+                "moe_gmm_skip": "src/repro/kernels/moe_gmm.py:142"}
+GMM_CASES = (  # (E, C, D, F, gated): test_kernels.py's, ragged, ungated
+    (2, 128, 128, 256, True), (4, 128, 256, 512, True),
+    (2, 128, 128, 128, False), (4, 64, 64, 128, True),
+    (3, 24, 96, 80, True), (3, 24, 96, 80, False))
+ARCTIC_2L = "arctic-480b-2l"
+# the slice's main path: arctic at full width, 2 layers, through the
+# launcher (continuous batching, then its expert-slot half)
+MOE_SERVE = dict(num_requests=8, batch=8, max_len=2048, new_tokens=32,
+                 prompt_len=(100, 1500), slots=4, hit_bias=0.0)
+# expert-buffer rows at the path's shapes: a ~1,000-token prefill
+# (capacity 24, every expert live) and a batch-8 decode step (capacity 8,
+# top-2 of 8 tokens: at most 16 experts live)
+PREFILL_C, DECODE_C, DECODE_LIVE = 24, 8, 16
+# benchmarks/perf_slot_decode.py's setting
+SLOT_STEPS, SLOT_SHARDS, SLOT_TENANTS = 96, 16, 4
+
+
+def _arctic(**kw):
+    from repro_torch.configs import base as cb
+    cb.load_all()
+    return dataclasses.replace(cb.get_config("arctic-480b"), **kw)
+
+
+def register_arctic_2l():
+    """arctic-480b at full width (all 128 experts) cut to 2 layers, in the
+    port's registry under its own name, so the launcher serves it as it
+    serves any arch."""
+    from repro_torch.configs import base as cb
+    return cb.register(_arctic(name=ARCTIC_2L, num_layers=2))
+
+
+def _gmm_err(got, want, dtype, what: str) -> float:
+    """Max |got - want|, after holding it to allclose at GMM_TOL."""
+    tol = GMM_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol, msg=lambda m: f"{what}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def _gmm_check(x, wg, wi, wo, counts, gated: bool, what: str) -> dict:
+    """Both entry points against their plain versions on one input; the
+    skip's empty experts must be exact zeros."""
+    from repro_torch.kernels import moe_gmm as gmm
+    dt = x.dtype
+    errs = {"moe_gmm": _gmm_err(gmm.moe_gmm(x, wg, wi, wo, gated=gated),
+                                gmm.moe_gmm_plain(x, wg, wi, wo,
+                                                  gated=gated),
+                                dt, f"moe_gmm {what}")}
+    got = gmm.moe_gmm_skip(x, wg, wi, wo, counts, gated=gated)
+    check(not got[counts <= 0].any(),
+          f"moe_gmm_skip {what}: an empty expert is not zero")
+    errs["moe_gmm_skip"] = _gmm_err(
+        got, gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts, gated=gated), dt,
+        f"moe_gmm_skip {what}")
+    return errs
+
+
+def _decode_buffers(gen, e, c, d, live, dtype, dev):
+    """Expert buffers of a decode step: `live` experts with 1..c rows
+    each (the rest of their rows and every other expert zero)."""
+    counts = torch.zeros(e, dtype=torch.int32, device=dev)
+    which = torch.randperm(e, generator=gen, device=dev)[:live]
+    counts[which] = torch.randint(1, c + 1, (live,), generator=gen,
+                                  device=dev, dtype=torch.int32)
+    rows = torch.arange(c, device=dev)[None, :] < counts[:, None]
+    x = torch.randn((e, c, d), generator=gen, device=dev) * rows[..., None]
+    return x.to(dtype), counts
+
+
+def phase_moe_gmm_vs_plain(dev, errs: dict, layer0) -> None:
+    """Both entry points against their plain versions: test_kernels.py's
+    shapes, a ragged and an ungated case, f32 and bf16, with counts
+    holding zeros; then the two path shapes at full width on the serving
+    model's layer-0 experts (bf16): prefill (E 128, C 24, every expert
+    live) and decode (E 128, C 8, 16 live)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        for e, c, d, f, gated in GMM_CASES:
+            r = lambda *s: torch.randn(s, generator=gen, device=dev)
+            x = (r(e, c, d) * 0.5).to(dtype)
+            wg, wi = ((r(e, d, f) * d ** -0.5).to(dtype) for _ in range(2))
+            wo = (r(e, f, d) * f ** -0.5).to(dtype)
+            counts = torch.tensor([(i % 3) * 2 for i in range(e)],
+                                  dtype=torch.int32, device=dev)
+            for name, err in _gmm_check(
+                    x, wg, wi, wo, counts, gated,
+                    f"{key} E={e} C={c} D={d} F={f} gated={gated}").items():
+                worst[(name, key)] = max(worst.get((name, key), 0.0), err)
+    wg, wi, wo = layer0
+    e, d, _ = wg.shape
+    x = torch.randn((e, PREFILL_C, d), generator=gen, device=dev).to(
+        wg.dtype)
+    full = {"prefill": _gmm_check(
+        x, wg, wi, wo, torch.full((e,), PREFILL_C, dtype=torch.int32,
+                                  device=dev), True, "full-width prefill")}
+    x, counts = _decode_buffers(gen, e, DECODE_C, d, DECODE_LIVE, wg.dtype,
+                                dev)
+    full["decode"] = _gmm_check(x, wg, wi, wo, counts, True,
+                                "full-width decode")
+    torch.cuda.synchronize()
+    for (name, _), err in worst.items():
+        errs[name] = max(errs[name], err)
+    for shape in full.values():
+        for name, err in shape.items():
+            errs[name] = max(errs[name], err)
+    f = wg.shape[-1]
+    shapes = {"prefill": f"E={e} C={PREFILL_C} D={d} F={f} bf16, all live",
+              "decode": f"E={e} C={DECODE_C} D={d} F={f} bf16, "
+                        f"{DECODE_LIVE} live"}
+    emit("moe_gmm_vs_plain", cases=len(GMM_CASES),
+         dtypes=["float32", "bfloat16"], tolerance=GMM_TOL,
+         max_abs_err={f"{n} {t}": v for (n, t), v in worst.items()},
+         full_width={k: {"shape": shapes[k], "max_abs_err": v}
+                     for k, v in full.items()},
+         empty_experts_zero=True, match=True)
+
+
+def phase_moe_jax_anchor(dev) -> None:
+    """arctic-480b at full width, 1 layer and 8 experts, top-2, capacity
+    factor 1.25, f32, weights from `numpy_params(cfg, 0)`: prefill 97
+    tokens (moe_gmm) and decode 8 (moe_gmm_skip); logits at 32 ids, the
+    argmax and every step's expert load against the JAX package's
+    (MOE_JAX_ANCHOR)."""
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.models import convert, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _arctic(num_layers=1, num_experts=8, top_k=2, capacity_factor=1.25,
+                  dtype="float32")
+    params = convert.params_from_numpy(convert.numpy_params(cfg, 0), dev,
+                                       torch.float32)
+    tokens, ids = anchor_inputs(cfg.vocab)
+    check(ids.tolist() == MOE_JAX_ANCHOR["ids"] and
+          hashlib.sha1(tokens.tobytes()).hexdigest() ==
+          MOE_JAX_ANCHOR["tokens_sha1"], "numpy drew other anchor inputs")
+    g0, s0 = gmm.moe_gmm.launches, gmm.moe_gmm_skip.launches
+    prompt = 97
+    logits, cache, aux = transformer.prefill(cfg, params,
+                                             {"tokens": tokens[:, :prompt]})
+    cache = [[{n: torch.nn.functional.pad(c[n], (0, 0, 0, 0, 0, 8))
+               for n in c} for c in seg] for seg in cache]
+    rows, loads = [logits[0, -1]], [aux[0][0]["expert_load"][0]]
+    for i in range(prompt, prompt + 8):
+        logits, cache, aux = transformer.decode_step(
+            cfg, params, {"tokens": tokens[:, i:i + 1],
+                          "positions": np.full((1,), i, np.int32)}, cache)
+        rows.append(logits[0, -1])
+        loads.append(aux[0][0]["expert_load"][0])
+    torch.cuda.synchronize()
+    launched = (gmm.moe_gmm.launches - g0, gmm.moe_gmm_skip.launches - s0)
+    check(launched == (1, 8), f"anchor launched {launched}, not (1, 8)")
+    loads = torch.stack(loads).tolist()
+    for step, (got_l, want_l) in enumerate(zip(loads,
+                                               MOE_JAX_ANCHOR["expert_load"])):
+        check(got_l == want_l,
+              f"anchor step {step}: expert load {got_l}, JAX {want_l}")
+    got = torch.stack(rows).double().cpu().numpy()
+    want = np.asarray(MOE_JAX_ANCHOR["logits"])
+    err = float(np.abs(got[:, ids] - want).max())
+    check(err <= ANCHOR_TOL, f"anchor logits differ from JAX's by {err}")
+    argmax = got.argmax(1).tolist()
+    for step, (a, w, gap) in enumerate(zip(argmax, MOE_JAX_ANCHOR["argmax"],
+                                           MOE_JAX_ANCHOR["gap"])):
+        if gap > 2 * ANCHOR_TOL:
+            check(a == w, f"anchor step {step}: argmax {a}, JAX {w}")
+        else:   # a near-tie in the JAX run: its winner must still tie
+            check(got[step].max() - got[step, w] <= 2 * ANCHOR_TOL,
+                  f"anchor step {step}: JAX's argmax {w} is not a top logit")
+    emit("moe_jax_anchor", arch="arctic-480b", layers=1,
+         experts=cfg.num_experts, top_k=cfg.top_k,
+         capacity_factor=cfg.capacity_factor, dtype="float32",
+         prompt=prompt, decode_steps=8, compared_ids=len(ids),
+         max_abs_err=err, tolerance=ANCHOR_TOL, argmax=argmax,
+         argmax_match=sum(a == w for a, w in
+                          zip(argmax, MOE_JAX_ANCHOR["argmax"])),
+         expert_load_match=True, prefill_load=loads[0],
+         prefill_dropped=prompt * cfg.top_k - sum(loads[0]),
+         launches={"moe_gmm": launched[0], "moe_gmm_skip": launched[1]})
+    del params, cache
+
+
+def phase_moe_model_consistency(dev, cfg, params) -> None:
+    """arctic-480b at full width, 2 layers, 128 experts, bf16, random
+    weights: one prompt and 8 decode steps through the kernels against
+    the plain path; logits within DEEP_BF16_REL, and the share of routed
+    expert ids the two paths agree on.  (No prefill-vs-full-sequence
+    check here: at capacity 1.25 a prefill of T tokens and a decode step
+    of B tokens have other capacities, so other drops.)"""
+    from repro_torch.models import moe, transformer
+    b, t0, steps = 1, 300, 8
+    tokens = np.random.default_rng(8).integers(
+        0, cfg.vocab, (b, t0 + steps)).astype(np.int32)
+    out, routes = {}, {}
+    t_start = time.perf_counter()
+    for mode in ("auto", "plain"):
+        with spy_calls(moe, "route") as calls:
+            logits, cache, _ = transformer.prefill(
+                cfg, params, {"tokens": tokens[:, :t0]}, use_kernel=mode)
+            cache = [[{n: torch.nn.functional.pad(c[n],
+                                                  (0, 0, 0, 0, 0, steps))
+                       for n in c} for c in seg] for seg in cache]
+            rows = [logits]
+            for i in range(t0, t0 + steps):
+                logits, cache, _ = transformer.decode_step(
+                    cfg, params, {"tokens": tokens[:, i:i + 1],
+                                  "positions": np.full((b,), i, np.int32)},
+                    cache, use_kernel=mode)
+                rows.append(logits)
+        out[mode] = torch.cat(rows, 1)
+        routes[mode] = torch.cat([ids.sort(-1).values for ids, _ in calls])
+        del cache
+    torch.cuda.synchronize()
+    rel = _rel(out["auto"], out["plain"])
+    check(rel <= DEEP_BF16_REL, f"moe_model_consistency: relative L2 {rel} "
+                                f"> {DEEP_BF16_REL}")
+    agree = float((routes["auto"] == routes["plain"]).float().mean())
+    emit("moe_model_consistency", arch=cfg.name, layers=cfg.num_layers,
+         experts=cfg.num_experts, dtype="bfloat16", batch=b, prefill=t0,
+         decode_steps=steps, rel_l2_kernel_vs_plain=rel,
+         tolerance=DEEP_BF16_REL, routed_ids_agree=agree,
+         argmax_agree=float((out["auto"].argmax(-1) ==
+                             out["plain"].argmax(-1)).float().mean()),
+         seconds=round(time.perf_counter() - t_start, 3))
+
+
+@contextlib.contextmanager
+def spy_calls(module, name: str):
+    """Record the result of every call of `module.<name>` in the block."""
+    real, results = getattr(module, name), []
+
+    def spy(*a, **kw):
+        res = real(*a, **kw)
+        results.append(res)
+        return res
+
+    setattr(module, name, spy)
+    try:
+        yield results
+    finally:
+        setattr(module, name, real)
+
+
+def perf_slot_tenants(cfg, n=SLOT_TENANTS, batch=8, width=16):
+    """`benchmarks/perf_slot_decode.py`'s tenants: batch 8, 16 tokens,
+    router bias +6 (plus noise) on a band of E/n + 8 experts, -6
+    elsewhere; the same numpy draws."""
+    from repro_torch.serve.engine import Tenant
+    rng = np.random.default_rng(0)
+    out = []
+    e = cfg.num_experts
+    band = e // n
+    for i in range(n):
+        bias = np.full((e,), -6.0, np.float32)
+        bias[i * band:(i + 1) * band + 8] = 6.0 + rng.normal(
+            0, 0.5, min(band + 8, e - i * band))
+        out.append(Tenant(
+            name=f"tenant{i}",
+            tokens=rng.integers(0, cfg.vocab, (batch, width)).astype(
+                np.int32),
+            router_bias=bias))
+    return out
+
+
+def phase_slot_engine(dev, cfg, params) -> None:
+    """The paper-technique setting of `benchmarks/perf_slot_decode.py` at
+    full width: 4 tenants, 16 expert shards, quantum 16 tokens, slots
+    {2, 4} x slot-hit bias {0, 4}, 96 decode steps each through
+    `SlotServeEngine`.  Per configuration: hit rate, fills, live experts
+    per layer-step and synchronised wall ms per step from one run; then
+    a second run of the same engine under `torch.profiler` for
+    `moe_gmm_skip`'s device ms per step (`_kernel_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.serve.engine import EngineConfig, SlotServeEngine
+    moe_layers = sum(cfg.moe_layer_mask())
+    for slots in (2, 4):
+        for bias in (0.0, 4.0):
+            def engine():
+                return SlotServeEngine(
+                    cfg, params,
+                    EngineConfig(quantum_tokens=16, slots_per_shard=slots,
+                                 expert_shards=SLOT_SHARDS, hit_bias=bias),
+                    perf_slot_tenants(cfg), max_len=SLOT_STEPS + 4,
+                    device=dev)
+            eng = engine()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = eng.run(SLOT_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            del eng
+            eng, before = engine(), moe_gmm.moe_gmm_skip.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.run(SLOT_STEPS)
+                torch.cuda.synchronize()
+            launched = moe_gmm.moe_gmm_skip.launches - before
+            check(launched == SLOT_STEPS * moe_layers,
+                  f"slot engine launched moe_gmm_skip {launched} times")
+            skip_ms = _kernel_ms(prof)["moe_gmm_skip"]
+            emit("slot_engine", arch=cfg.name, slots=slots, hit_bias=bias,
+                 shards=SLOT_SHARDS, tenants=SLOT_TENANTS, batch=8,
+                 steps=rep["steps"], hit_rate=rep["hit_rate"],
+                 fills=rep["fills"], fill_seconds=rep["fill_seconds"],
+                 live_experts_per_layer_step=rep["accesses"] /
+                 (rep["steps"] * moe_layers),
+                 wall_ms_per_step=1e3 * secs / rep["steps"],
+                 moe_gmm_skip_device_ms_per_step=(
+                     skip_ms / rep["steps"] if skip_ms > 0 else None))
+            del eng
+
+
+def _bmm_ffn(x, wg, wi, wo):
+    """The same function in three `torch.bmm` calls: the yardstick
+    (`library_ms`), never called by the port."""
+    h = torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wi)
+    return torch.bmm(h, wo)
+
+
+def _gmm_bound(live: int, e: int, c: int, d: int, f: int, elem: int,
+               counts: bool) -> tuple[float, str, int, int]:
+    """Least time of the grouped FFN, in ms, what bounds it, its flops
+    and bytes: the live experts' weights and rows read once, the whole
+    output written once (and the counts read), at the HBM rate; 6 C D F
+    flops a live expert at the bf16 tensor-core rate."""
+    nbytes = elem * (3 * live * d * f + live * c * d + e * c * d) + \
+        4 * e * counts
+    flops = 6 * live * c * d * f
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_time_moe(dev, errs: dict, layer0) -> dict:
+    """Kernel, plain and library times of both entry points at the path's
+    shapes on the model's layer-0 experts (bf16): `moe_gmm` at a prefill
+    (E 128, C 24, every expert live), `moe_gmm_skip` at a batch-8 decode
+    step (E 128, C 8, 16 live; the library call over the live experts
+    only, gathered before the timing).  The weights (26.8 GB, 3.3 GB
+    live) are far beyond the 50 MB L2."""
+    from repro_torch.kernels import moe_gmm as gmm
+    wg, wi, wo = layer0
+    e, d, f = wg.shape
+    dt = wg.dtype
+    elem = wg.element_size()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+
+    x = torch.randn((e, PREFILL_C, d), generator=gen, device=dev).to(dt)
+    errs["moe_gmm"] = max(errs["moe_gmm"], _gmm_err(
+        gmm.moe_gmm(x, wg, wi, wo), gmm.moe_gmm_plain(x, wg, wi, wo), dt,
+        "moe_gmm timing"))
+    ms = cuda_ms(lambda: gmm.moe_gmm(x, wg, wi, wo), 5)
+    plain_ms = cuda_ms(lambda: gmm.moe_gmm_plain(x, wg, wi, wo), 1)
+    lib_ms = cuda_ms(lambda: _bmm_ffn(x, wg, wi, wo), 5)
+    bound, by, flops, nbytes = _gmm_bound(e, e, PREFILL_C, d, f, elem, False)
+    out["moe_gmm"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+        bound_by=by, flops=flops, bytes=nbytes,
+        shape=f"prefill E={e} C={PREFILL_C} D={d} F={f} bf16, all live")
+    emit("time_moe_gmm", **out["moe_gmm"])
+
+    x, counts = _decode_buffers(gen, e, DECODE_C, d, DECODE_LIVE, dt, dev)
+    errs["moe_gmm_skip"] = max(errs["moe_gmm_skip"], _gmm_err(
+        gmm.moe_gmm_skip(x, wg, wi, wo, counts),
+        gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts), dt,
+        "moe_gmm_skip timing"))
+    ms = cuda_ms(lambda: gmm.moe_gmm_skip(x, wg, wi, wo, counts), 20)
+    plain_ms = cuda_ms(lambda: gmm.moe_gmm_skip_plain(x, wg, wi, wo,
+                                                      counts), 3)
+    live = torch.nonzero(counts > 0)[:, 0]
+    gathered = [t[live] for t in (x, wg, wi, wo)]
+    lib_ms = cuda_ms(lambda: _bmm_ffn(*gathered), 20)
+    del gathered
+    n_live = int(live.numel())
+    bound, by, flops, nbytes = _gmm_bound(n_live, e, DECODE_C, d, f, elem,
+                                          True)
+    out["moe_gmm_skip"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+        bound_by=by, flops=flops, bytes=nbytes,
+        shape=f"decode E={e} C={DECODE_C} D={d} F={f} bf16, {n_live} live, "
+              f"counts {counts[live].tolist()}")
+    emit("time_moe_gmm_skip", **out["moe_gmm_skip"])
+    return out
+
+
+def phase_moe_serve(dev) -> dict:
+    """The slice's main path: `repro_torch.launch.serve` serving
+    arctic-480b at full width (2 layers, all 128 experts), bf16: 8
+    requests by continuous batching (`moe_gmm` at each prefill,
+    `moe_gmm_skip` at each decode step), then its expert-slot half (3
+    tenants, 48 steps, 4 slots).  The kernels' counts are set to 0 just
+    before and read just after."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import serve
+    cfg = register_arctic_2l()
+    wrappers = {"moe_gmm": gmm.moe_gmm, "moe_gmm_skip": gmm.moe_gmm_skip,
+                "flash_attention": fa.flash_attention,
+                "decode_attention": da.decode_attention}
+    for fn in wrappers.values():
+        fn.launches = 0
+    report = serve.serve(ARCTIC_2L, device=dev, **MOE_SERVE)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    slots = report["expert_slots"]
+    n = MOE_SERVE["num_requests"]
+    check(report["finished"] == n, f"served {report['finished']} of {n}")
+    check(report["generated_tokens"] == n * MOE_SERVE["new_tokens"],
+          "tokens missing")
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the serving path")
+    layers = cfg.num_layers
+    check(launches["moe_gmm"] == n * layers,
+          f"moe_gmm launched {launches['moe_gmm']}, not {n * layers}")
+    want_skip = (report["steps"] + slots["steps"]) * layers
+    check(launches["moe_gmm_skip"] == want_skip,
+          f"moe_gmm_skip launched {launches['moe_gmm_skip']}, not "
+          f"{want_skip}")
+    check(slots["fill_seconds"] > 0, "the expert slots filled nothing")
+    emit("moe_serve", arch=cfg.name, layers=layers,
+         experts=cfg.num_experts, top_k=cfg.top_k,
+         capacity_factor=cfg.capacity_factor, dtype=cfg.dtype,
+         **{k: v for k, v in MOE_SERVE.items() if k != "prompt_len"},
+         prompt_len=list(MOE_SERVE["prompt_len"]), launches=launches,
+         **report)
+    return launches
+
+
 def main() -> None:
     load_port()
     card = phase_device()
@@ -1056,6 +1618,36 @@ def main() -> None:
         "library_ms": attn_times[name]["library_ms"],
         "match": True, "shape": attn_times[name]["shape"]}
         for name in ("flash_attention", "decode_attention")]
+    torch.cuda.empty_cache()          # granite's weights are gone
+
+    # the MoE slice
+    from repro_torch.models import transformer
+    moe_errs = {"moe_gmm": 0.0, "moe_gmm_skip": 0.0}
+    phase_moe_jax_anchor(dev)
+    torch.cuda.empty_cache()
+    cfg = register_arctic_2l()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    layer0 = tuple(params["segments"][0][0]["moe"][k][0]
+                   for k in ("wg", "wi", "wo"))
+    phase_moe_gmm_vs_plain(dev, moe_errs, layer0)
+    moe_times = phase_time_moe(dev, moe_errs, layer0)
+    phase_moe_model_consistency(dev, cfg, params)
+    phase_slot_engine(dev, cfg, params)
+    profile_serving(dev, cfg, params, "serve_profile_moe")
+    del params, layer0
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe_serve(dev)       # its main path, counted
+    kernels += [{
+        "name": name, "route": "cuda", "source": MOE_SOURCE,
+        "replaces": MOE_REPLACES[name], "launches": moe_launches[name],
+        "max_abs_err": moe_errs[name], "ms": moe_times[name]["ms"],
+        "plain_ms": moe_times[name]["plain_ms"],
+        "bound_ms": moe_times[name]["bound_ms"],
+        "bound_by": moe_times[name]["bound_by"],
+        "library_ms": moe_times[name]["library_ms"],
+        "match": True, "shape": moe_times[name]["shape"]}
+        for name in ("moe_gmm", "moe_gmm_skip")]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,14 +6,17 @@ package's `benchmarks/run.py` records for it.  The anchors are integer
 simulations turned into float32 CPIs, so they do not depend on the device:
 fig4 minver_speedup_F=27.50, fig5 5/8/9, fig6 avg_s2@50c=0.687, fig7
 abs 0.81 of IMF (x3.13/x1.39/x1.67), P=4 fleet 0.935/0.757/0.452.
+`bench_expert_slots` serves a smoke-size MoE model through the slot
+engine; its derived line is its first row, as the JAX runner records it.
 `python -m repro_torch.bench` runs them all.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.bench import (bitstream_study, fig4_extensions,
-                               fig5_classification, fig6_single, fig7_multi)
+from repro_torch.bench import (bench_expert_slots, bitstream_study,
+                               fig4_extensions, fig5_classification,
+                               fig6_single, fig7_multi)
 
 
 def _capture(main, **kw) -> list[str]:
@@ -63,6 +66,11 @@ def bench_bitstream_study(device="cuda"):
     return lines, [l for l in lines if l.startswith("# finding")][0][2:]
 
 
+def bench_slots(device="cuda"):
+    lines = _capture(bench_expert_slots.main, device=device)
+    return lines, lines[1] if len(lines) > 1 else ""
+
+
 BENCHES = {
     "fig4_extensions": bench_fig4,
     "fig5_classification": bench_fig5,
@@ -70,4 +78,5 @@ BENCHES = {
     "fig7_multi": bench_fig7,
     "fleet_sweep": bench_fleet_sweep,
     "bitstream_study": bench_bitstream_study,
+    "bench_expert_slots": bench_slots,
 }

@@ -1,7 +1,8 @@
 // Loads and stores shared by the attention kernels (flash_attention.cu,
-// decode_attention.cu): 16-byte reads of bf16 or f32 rows of a strided
-// (..., rows, ..., D) tensor into an f32 tile in shared memory, and
-// 4-wide stores of f32 results in the tensor's own type.
+// decode_attention.cu) and the expert FFN (moe_gmm.cu): 16-byte reads of
+// bf16 or f32 rows of a strided (..., rows, ..., D) tensor into an f32 tile
+// in shared memory, single-element reads for ragged edges, and 4-wide or
+// single stores of f32 results in the tensor's own type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,7 @@ struct IO<float> {
     const float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
+  __device__ static float load1(const float* p) { return *p; }
   __device__ static void store4(float* p, float a, float b, float c,
                                 float d) {
     *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
@@ -44,6 +46,9 @@ struct IO<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ static float load1(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
   }
   __device__ static void store4(__nv_bfloat16* p, float a, float b, float c,
                                 float d) {

@@ -1,0 +1,169 @@
+"""Grouped expert FFN: Hopper kernel and its plain versions.
+
+PyTorch port of the JAX package's Pallas kernels
+`repro.kernels.moe_gmm.moe_gmm` and `moe_gmm_skip`: for each expert e of
+x (E, C, D) (its capacity buffer), wg/wi (E, D, F) and wo (E, F, D),
+
+    out[e] = (silu(x[e] @ wg[e]) * (x[e] @ wi[e])) @ wo[e]     (gated)
+    out[e] = gelu_tanh(x[e] @ wg[e]) @ wo[e]                   (ungated)
+
+with f32 accumulation, `h` rounded to x's dtype between the two stages as
+the Pallas kernel's `h_ref` is, and the output in x's dtype.  The ungated
+form reads `wg`, as the Pallas kernel does (the model's ungated FFN passes
+its `wi` there).  `moe_gmm_skip` takes `counts` (E,) int32: experts with
+`counts[e] <= 0` give exact zeros and read no weights.
+
+* `moe_gmm_plain` / `moe_gmm_skip_plain`: one expert at a time (so the
+  f32 copies of one expert's weights are all that is held at once), any
+  device.
+* the CUDA kernel `csrc/moe_gmm.cu` for `sm_90a` (bf16/f32, any C, D, F):
+  two launches, one CTA per (64-column tile, expert) holding all of the
+  expert's rows.  Built with `nvcc` at first use, bound with ctypes.
+
+`moe_gmm` and `moe_gmm_skip` own the choice: CUDA tensors launch the
+kernel (and count it in the wrapper's `.launches`) or raise, CPU tensors
+run the plain version; `use_kernel="plain"` forces the plain version
+anywhere.  The Pallas kernels' block sizes are TPU tiling knobs with no
+counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import common
+
+__all__ = ["moe_gmm", "moe_gmm_skip", "moe_gmm_plain", "moe_gmm_skip_plain",
+           "build"]
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "moe_gmm.cu")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _expert_plain(x, wg, wi, wo, gated: bool) -> torch.Tensor:
+    """One expert: x (C, D) through wg/wi (D, F), wo (F, D)."""
+    xf = x.float()
+    hg = xf @ wg.float()
+    if gated:
+        h = F.silu(hg) * (xf @ wi.float())
+    else:
+        h = F.gelu(hg, approximate="tanh")   # jax.nn.gelu's default
+    h = h.to(x.dtype).float()
+    return (h @ wo.float()).to(x.dtype)
+
+
+def moe_gmm_plain(x, wg, wi, wo, *, gated: bool = True) -> torch.Tensor:
+    """x: (E, C, D); wg/wi: (E, D, F); wo: (E, F, D) -> (E, C, D)."""
+    out = torch.empty_like(x)
+    for e in range(x.shape[0]):
+        out[e] = _expert_plain(x[e], wg[e], wi[e] if gated else None, wo[e],
+                               gated)
+    return out
+
+
+def moe_gmm_skip_plain(x, wg, wi, wo, counts, *,
+                       gated: bool = True) -> torch.Tensor:
+    """`moe_gmm_plain` over the experts with counts[e] > 0; zeros for the
+    others."""
+    out = torch.zeros_like(x)
+    for e, live in enumerate((counts > 0).tolist()):
+        if live:
+            out[e] = _expert_plain(x[e], wg[e], wi[e] if gated else None,
+                                   wo[e], gated)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+def build(verbose: bool = False) -> str:
+    """Compile `csrc/moe_gmm.cu` into `kernels/build/` (once per source
+    content) and return the shared library's path."""
+    return common.build(SOURCE, verbose)
+
+
+def _declare(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.moe_gmm_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.moe_gmm_launch.restype = ci
+
+
+def _check(x, wg, wi, wo, counts, gated: bool) -> None:
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"moe_gmm kernel takes bf16 or f32, not {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"x has shape {tuple(x.shape)}: expected (E, C, D)")
+    e, _, d = x.shape
+    f = wg.shape[-1] if wg.dim() == 3 else -1
+    if f < 1:
+        raise ValueError(f"wg has shape {tuple(wg.shape)}: expected "
+                         f"({e}, {d}, F) with F >= 1")
+    want = {"x": (x, x.shape), "wg": (wg, (e, d, f)), "wo": (wo, (e, f, d))}
+    if gated:
+        want["wi"] = (wi, (e, d, f))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        if t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, x is "
+                             f"{x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if counts is not None and (
+            counts.device != x.device or counts.dtype != torch.int32
+            or tuple(counts.shape) != (e,) or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous ({e},) int32 tensor "
+                         f"on {x.device}")
+
+
+def _launch(x, wg, wi, wo, counts, gated: bool) -> torch.Tensor:
+    """Check the operands, allocate h and the output and launch both
+    stages on the current stream."""
+    _check(x, wg, wi, wo, counts, gated)
+    e, c, d = x.shape
+    f = wg.shape[-1]
+    lib = common.library(SOURCE, _declare)
+    h = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.moe_gmm_launch(
+        x.data_ptr(), wg.data_ptr(), wi.data_ptr() if gated else None,
+        wo.data_ptr(), counts.data_ptr() if counts is not None else None,
+        h.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], e, c, d, f,
+        int(gated), stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {err}")
+    return out
+
+
+def moe_gmm(x, wg, wi, wo, *, gated: bool = True, use_kernel=None):
+    """The grouped expert FFN of every expert (see the module docstring).
+    CUDA tensors launch the kernel; CPU tensors, or `use_kernel="plain"`,
+    run `moe_gmm_plain`; `use_kernel="kernel"` raises on CPU."""
+    if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
+        return moe_gmm_plain(x, wg, wi, wo, gated=gated)
+    out = _launch(x, wg, wi, wo, None, gated)
+    moe_gmm.launches += 1
+    return out
+
+
+def moe_gmm_skip(x, wg, wi, wo, counts, *, gated: bool = True,
+                 use_kernel=None):
+    """The grouped expert FFN of the experts with counts[e] > 0, exact
+    zeros for the others, whose weights the kernel never reads.  Device
+    rule as `moe_gmm`'s."""
+    if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
+        return moe_gmm_skip_plain(x, wg, wi, wo, counts, gated=gated)
+    out = _launch(x, wg, wi, wo, counts, gated)
+    moe_gmm_skip.launches += 1
+    return out
+
+
+moe_gmm.launches = 0
+moe_gmm_skip.launches = 0

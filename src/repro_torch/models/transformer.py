@@ -1,5 +1,5 @@
 """Decoder-LM assembly: PyTorch port of `repro.models.transformer`, the
-global-attention (`"attn"`) block.
+global-attention (`"attn"`) and MoE (`"moe"`) blocks.
 
 An architecture compiles to *segments*: a tuple of block types repeated N
 times, with parameters stacked over the repeat axis.  The JAX package runs
@@ -12,22 +12,25 @@ that indexes views of the stacked tensors.
     rwkv6:            [(("rwkv",), L)]
     recurrentgemma:   [(("rec","rec","lattn"), 12), (("rec","rec"), 1)]
 
-This slice runs the attention-only archs (granite-3-2b, qwen1.5-4b,
-qwen1.5-110b, minitron-4b, musicgen-medium, qwen2-vl-7b); the other block
-types raise `NotImplementedError` naming the slice that brings them.
+This port runs the attention-only archs and the MoE archs (arctic-480b,
+llama4-maverick); the other block types raise `NotImplementedError`
+naming the slice that brings them.
 
 Three execution modes share the block code:
     train   — full sequence, no cache;
     prefill — full sequence, emits per-layer cache (stacked over layers);
     decode  — one token, writes its K/V into the given cache in place and
               returns that cache.
+Each MoE block's per-layer `expert_load` comes back in `aux`, stacked over
+the segment's layers as (n, E) int32, in the JAX package's layout.
 
 `use_kernel` (None/"auto", "kernel", "plain"; carried in `Ctx`) reaches
-the two attention kernels, whose wrappers own the device choice: the
-flash kernel for prefill and the decode kernel for each decode step on
-CUDA tensors, their plain versions on CPU tensors.  The JAX package's
-sharding context (`shd`, `_expand_kv` for head-TP) has no counterpart on
-one card: `shd` must be None.
+the kernels, whose wrappers own the device choice: the flash kernel for
+prefill and the decode kernel for each decode step, the grouped-FFN
+kernel `moe_gmm` at prefill and `moe_gmm_skip` at a decode step, on CUDA
+tensors; their plain versions on CPU tensors.  The JAX package's sharding
+context (`shd`, `_expand_kv` for head-TP) has no counterpart on one card:
+`shd` must be None.
 """
 from __future__ import annotations
 
@@ -37,14 +40,13 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import kvcache, layers
+from repro_torch.models import kvcache, layers, moe
 
 __all__ = ["segments", "init_params", "init_cache", "Ctx", "apply_block",
            "run_segments", "forward", "prefill", "decode_step", "DecoderLM"]
 
 # the slice of the port that brings each block type this one lacks
-_LATER = {"moe": "the MoE serving slice",
-          "lattn": "the recurrentgemma slice",
+_LATER = {"lattn": "the recurrentgemma slice",
           "rec": "the recurrentgemma slice",
           "rwkv": "the rwkv6 slice"}
 
@@ -115,13 +117,19 @@ def _tree_stack(trees):
 # ---------------------------------------------------------------------------
 
 def _init_block(btype: str, gen: torch.Generator, cfg, device):
-    if btype != "attn":
+    """One layer of a block; a moe block's router and experts are drawn
+    by `init_params`, stacked."""
+    if btype not in ("attn", "moe"):
         raise _later(btype)
     d = cfg.d_model
-    return {"ln1": layers.init_rmsnorm(d, device),
-            "ln2": layers.init_rmsnorm(d, device),
-            "attn": layers.init_attention(gen, cfg, device),
-            "mlp": layers.init_mlp(gen, cfg, device=device)}
+    p = {"ln1": layers.init_rmsnorm(d, device),
+         "ln2": layers.init_rmsnorm(d, device),
+         "attn": layers.init_attention(gen, cfg, device)}
+    if btype == "attn":
+        p["mlp"] = layers.init_mlp(gen, cfg, device=device)
+    elif cfg.dense_ff_residual:
+        p["dense"] = layers.init_mlp(gen, cfg, cfg.dense_ff_residual, device)
+    return p
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
@@ -136,9 +144,12 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
             device=dev) * cfg.d_model ** -0.5
     segs = []
     for types, n in segments(cfg):
-        segs.append(_tree_stack(
-            [[_init_block(t, generator, cfg, dev) for t in types]
-             for _ in range(n)]))
+        seg = _tree_stack([[_init_block(t, generator, cfg, dev)
+                            for t in types] for _ in range(n)])
+        for j, t in enumerate(types):
+            if t == "moe":
+                seg[j]["moe"] = moe.init_moe(generator, cfg, n, dev)
+        segs.append(seg)
     params["segments"] = segs
     params["final_norm"] = layers.init_rmsnorm(cfg.d_model, dev)
     if not cfg.tie_embeddings:
@@ -174,6 +185,7 @@ class Ctx(NamedTuple):
     mode: str                    # train | prefill | decode
     positions: Any               # (B,T) ids, (B,T,3) mrope, or (B,) decode
     use_kernel: Any = None       # None/"auto" | "kernel" | "plain"
+    router_bias: Any = None      # (E,) slot-hit routing bias (serving)
 
 
 def _prefill_cache(cfg, k, v):
@@ -206,14 +218,21 @@ def _attention(p, x, cache, ctx):
 
 
 def apply_block(btype, p, x, cache, ctx):
-    if btype != "attn":
+    if btype not in ("attn", "moe"):
         raise _later(btype)
     cfg = ctx.cfg
+    aux = {}
     o, new_cache = _attention(p, x, cache, ctx)
     x = x + o
     h = layers.rmsnorm(x, p["ln2"])
-    x = x + layers.apply_mlp(p["mlp"], h, cfg)
-    return x, new_cache, {}
+    if btype == "attn":
+        return x + layers.apply_mlp(p["mlp"], h, cfg), new_cache, aux
+    mo, aux = moe.moe_apply(p["moe"], h, cfg, router_bias=ctx.router_bias,
+                            skip_empty=ctx.mode == "decode",
+                            use_kernel=ctx.use_kernel)
+    if cfg.dense_ff_residual:
+        mo = mo + layers.apply_mlp(p["dense"], h, cfg)
+    return x + mo, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -228,29 +247,33 @@ def _layer(tree, i: int):
 def run_segments(params, x, caches, ctx):
     """caches: None (train/prefill) or list matching segments (decode,
     written in place).  Returns (x, caches, aux): prefill's caches are
-    stacked over layers, decode's are the caches given."""
+    stacked over layers, decode's are the caches given; aux holds, per
+    segment and block, `{"expert_load": (n, E) int32}` for a moe block
+    and `{}` for the others."""
     cfg = ctx.cfg
     all_caches, all_aux = [], []
     for si, (types, n) in enumerate(segments(cfg)):
         seg_params = params["segments"][si]
         seg_cache = caches[si] if caches is not None else None
-        per_layer = []
+        per_layer, per_aux = [], []
         for i in range(n):
-            ncs = []
+            ncs, auxes = [], []
             for j, bt in enumerate(types):
                 c = _layer(seg_cache[j], i) if seg_cache is not None \
                     else None
-                x, nc, _ = apply_block(bt, _layer(seg_params[j], i), x, c,
-                                       ctx)
+                x, nc, aux = apply_block(bt, _layer(seg_params[j], i), x, c,
+                                         ctx)
                 ncs.append(nc)
+                auxes.append(aux)
             per_layer.append(ncs)
+            per_aux.append(auxes)
         if ctx.mode == "prefill":
             all_caches.append(_tree_stack(per_layer))
         elif ctx.mode == "decode":
             all_caches.append(seg_cache)
         else:
             all_caches.append([None] * len(types))
-        all_aux.append([{} for _ in types])
+        all_aux.append(_tree_stack(per_aux))
     return x, all_caches, all_aux
 
 
@@ -307,13 +330,14 @@ def prefill(cfg, params, batch, shd=None, use_kernel=None):
 
 def decode_step(cfg, params, batch, cache, shd=None, use_kernel=None):
     """One token for every sequence.  batch: tokens/embeds (B,1,...) +
-    positions (B,).  Writes the token's K/V into `cache` in place and
-    returns (logits (B,1,V), that cache, aux)."""
+    positions (B,) [+ router_bias (E,) for MoE archs].  Writes the token's
+    K/V into `cache` in place and returns (logits (B,1,V), that cache,
+    aux)."""
     _no_shd(shd)
     batch = _on_device(params, batch)
     ctx = Ctx(cfg=cfg, mode="decode",
               positions=batch["positions"].to(torch.int32),
-              use_kernel=use_kernel)
+              use_kernel=use_kernel, router_bias=batch.get("router_bias"))
     x = _embed_in(cfg, params, batch, ctx)
     x, caches, aux = run_segments(params, x, cache, ctx)
     x = layers.rmsnorm(x, params["final_norm"])

@@ -1,2 +1,3 @@
 """Serving: continuous batching over the port's models (`batching`,
-`engine.model_batcher`)."""
+`engine.model_batcher`) and the slot-aware multi-tenant engine
+(`engine.SlotServeEngine`)."""

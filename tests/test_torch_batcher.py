@@ -111,9 +111,56 @@ def test_launch_serve_on_cpu(capsys):
     assert '"finished": 5' in out and '"device": "cpu"' in out
 
 
-def test_serve_refuses_moe_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tserve.serve("arctic-480b", smoke=True, device="cpu")
+def test_serve_runs_moe_on_cpu_and_refuses_a_missing_card(monkeypatch):
+    """Without a card the launcher refuses every arch, MoE ones included
+    (which it serves on the CPU when asked, with the expert-slot half's
+    report)."""
+    report = tserve.serve("arctic-480b", smoke=True, device="cpu",
+                          num_requests=3, batch=2, max_len=16,
+                          new_tokens=2)
+    assert report["finished"] == 3
+    slots = report["expert_slots"]
+    assert slots["steps"] == tserve.SLOT_STEPS
+    assert 0 < slots["fills"] <= slots["accesses"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tserve.serve(ARCH, smoke=True)
+    for arch in (ARCH, "arctic-480b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.serve(arch, smoke=True)
+
+
+@pytest.mark.parametrize("slots,hit_bias", [(4, 0.0), (2, 4.0)])
+def test_launch_serve_moe_matches_jax_launcher(monkeypatch, capsys, slots,
+                                               hit_bias):
+    """The launcher's two halves on arctic-480b-smoke against the JAX
+    launcher's (`repro.launch.serve.main`) with its weights carried
+    across: the batching report and the expert-slot stats (whose tenants
+    draw from the generator after the prompts) are equal."""
+    import json
+    import sys
+
+    from repro.launch import serve as jserve
+    from repro.models import transformer as jt
+
+    arch, argv = "arctic-480b", ["--requests", "3", "--batch", "2",
+                                 "--max-len", "16", "--new-tokens", "2",
+                                 "--slots", str(slots),
+                                 "--hit-bias", str(hit_bias)]
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--smoke",
+                                      *argv])
+    jserve.main()
+    lines = dict(line.split(": ", 1)
+                 for line in capsys.readouterr().out.splitlines())
+    want_batch = json.loads(lines["continuous batching"])
+    want_slots = json.loads(lines["expert slots"])
+
+    jp = jt.init_params(jcb.get_config(arch).smoke(), jax.random.PRNGKey(0))
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   "cpu")
+    monkeypatch.setattr(tserve.transformer, "init_params",
+                        lambda cfg, gen, dev: tp)
+    got = tserve.serve(arch, smoke=True, device="cpu", num_requests=3,
+                       batch=2, max_len=16, new_tokens=2, slots=slots,
+                       hit_bias=hit_bias)
+    assert {k: got[k] for k in want_batch} == want_batch
+    assert {k: got["expert_slots"][k] for k in want_slots} == want_slots
+    assert want_slots["fills"] > 0

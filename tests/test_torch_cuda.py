@@ -2,8 +2,10 @@
 PyTorch versions: the window kernel bit for bit, plus the sweep and resume
 paths that launch it; the flash and decode attention kernels within the
 tolerances of test_kernels.py (2e-5 in f32, 2e-2 in bf16), plus the model
-path that launches them.  Marked `cuda`; every test skips without a CUDA
-device.  On a machine with a card:
+path that launches them; the grouped-FFN kernel (`moe_gmm`,
+`moe_gmm_skip`) within test_kernels.py's 2e-5 / 3e-2, empty experts exact
+zeros, plus the MoE model path.  Marked `cuda`; every test skips without
+a CUDA device.  On a machine with a card:
 `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
 """
 import dataclasses
@@ -16,6 +18,7 @@ from repro_torch.configs import base as cb
 from repro_torch.core import isa, simulator
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as gmm
 from repro_torch.kernels import window_distance as wd
 from repro_torch.models import transformer
 
@@ -153,7 +156,8 @@ def _assert_close(got, want, dtype):
 @pytest.mark.parametrize("t,h,kh,dh,window", [
     (1, 32, 8, 64, 0), (63, 8, 8, 64, 0), (64, 8, 2, 128, 0),
     (65, 8, 1, 64, 0), (1000, 32, 8, 64, 0), (300, 4, 1, 128, 50),
-    (129, 8, 2, 64, 64)])
+    (129, 8, 2, 64, 64),
+    (500, 56, 8, 128, 0), (77, 40, 8, 128, 0)])   # arctic G=7, llama4 G=5
 def test_flash_kernel_matches_plain(dev, dtype, t, h, kh, dh, window):
     gen = torch.Generator(device=dev).manual_seed(t * 7 + dh)
     q = _randn(gen, (2, t, h, dh), dtype, dev)
@@ -188,7 +192,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kh,dh", [
     (4, 256, 8, 8, 64), (4, 2048, 32, 8, 64), (4, 300, 8, 1, 128),
-    (4, 128, 4, 2, 128)])
+    (4, 128, 4, 2, 128),
+    (4, 2048, 56, 8, 128), (4, 333, 40, 8, 128)])   # G=7 (arctic), G=5
 def test_decode_kernel_matches_plain(dev, dtype, b, s, h, kh, dh):
     gen = torch.Generator(device=dev).manual_seed(s + h)
     q = _randn(gen, (b, h, dh), dtype, dev)
@@ -232,3 +237,91 @@ def test_model_on_card_matches_plain_and_launches_both_kernels(dev):
         assert launched == ((2, 6) if mode == "auto" else (0, 0))
         outs[mode] = torch.cat(steps, 1)
     _assert_close(outs["auto"], outs["plain"], torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# grouped expert FFN
+# ---------------------------------------------------------------------------
+
+GMM_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _gmm_inputs(gen, e, c, d, f, dtype, dev):
+    return (_randn(gen, (e, c, d), dtype, dev) * 0.5,
+            _randn(gen, (e, d, f), dtype, dev) * d ** -0.5,
+            _randn(gen, (e, d, f), dtype, dev) * d ** -0.5,
+            _randn(gen, (e, f, d), dtype, dev) * f ** -0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f,gated", [
+    (2, 128, 128, 256, True), (4, 128, 256, 512, True),
+    (2, 128, 128, 128, False), (4, 64, 64, 128, True),    # test_kernels.py
+    (3, 24, 96, 80, True), (3, 24, 96, 80, False),        # ragged
+    (5, 5, 40, 36, True), (2, 33, 64, 72, True)])          # odd rows
+def test_moe_gmm_kernels_match_plain(dev, dtype, e, c, d, f, gated):
+    gen = torch.Generator(device=dev).manual_seed(e * 131 + c + d + f)
+    x, wg, wi, wo = _gmm_inputs(gen, e, c, d, f, dtype, dev)
+    tol = GMM_ATOL[dtype]
+    before = (gmm.moe_gmm.launches, gmm.moe_gmm_skip.launches)
+    got = gmm.moe_gmm(x, wg, wi, wo, gated=gated)
+    torch.testing.assert_close(
+        got.float(), gmm.moe_gmm_plain(x, wg, wi, wo, gated=gated).float(),
+        atol=tol, rtol=tol)
+    counts = torch.tensor([(i % 3) * 2 for i in range(e)], dtype=torch.int32,
+                          device=dev)
+    got = gmm.moe_gmm_skip(x, wg, wi, wo, counts, gated=gated)
+    assert (gmm.moe_gmm.launches, gmm.moe_gmm_skip.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts, gated=gated)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    dead = counts == 0
+    assert not got[dead].any(), "empty experts are exact zeros"
+
+
+def test_moe_gmm_kernel_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((2, 8, 16), device=dev)
+    w, wo = torch.zeros((2, 16, 32), device=dev), \
+        torch.zeros((2, 32, 16), device=dev)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        gmm.moe_gmm(x.half(), w.half(), w.half(), wo.half())
+    with pytest.raises(ValueError, match="shape"):
+        gmm.moe_gmm(x, w, w, wo[:, :16])
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm.moe_gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2), w, wo)
+    with pytest.raises(ValueError, match="counts"):
+        gmm.moe_gmm_skip(x, w, w, wo, torch.ones(2, device=dev))
+
+
+def test_moe_model_on_card_matches_plain_and_launches_both_kernels(dev):
+    """A two-layer arctic at smoke width but head dim 64: prefill and three
+    decode steps through the kernels equal the plain path; prefill runs
+    moe_gmm and each decode step moe_gmm_skip, once a layer."""
+    cb.load_all()
+    cfg = dataclasses.replace(cb.get_config("arctic-480b").smoke(),
+                              head_dim=64)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    outs = {}
+    for mode in ("auto", "plain"):
+        g0, s0 = gmm.moe_gmm.launches, gmm.moe_gmm_skip.launches
+        logits, cache, aux = transformer.prefill(
+            cfg, params, {"tokens": tokens[:, :37]}, use_kernel=mode)
+        loads = [aux[0][0]["expert_load"]]
+        cache = [[{n: torch.nn.functional.pad(c[n], (0, 0, 0, 0, 0, 3))
+                   for n in c} for c in seg] for seg in cache]
+        steps = [logits]
+        for i in range(37, 40):
+            logits, cache, aux = transformer.decode_step(
+                cfg, params, {"tokens": tokens[:, i:i + 1],
+                              "positions": np.full((2,), i, np.int32)},
+                cache, use_kernel=mode)
+            steps.append(logits)
+            loads.append(aux[0][0]["expert_load"])
+        launched = (gmm.moe_gmm.launches - g0, gmm.moe_gmm_skip.launches - s0)
+        assert launched == ((2, 6) if mode == "auto" else (0, 0))
+        outs[mode] = (torch.cat(steps, 1), torch.cat(loads))
+    _assert_close(outs["auto"][0], outs["plain"][0], torch.float32)
+    assert torch.equal(outs["auto"][1], outs["plain"][1])

@@ -14,9 +14,10 @@ import torch
 
 from repro_torch.configs import base as cb
 from repro_torch.core import isa, simulator, stackdist_interleaved
-from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.core import expert_slots
+from repro_torch.kernels import decode_attention, flash_attention, moe_gmm
 from repro_torch.kernels import window_distance
-from repro_torch.models import convert, kvcache, transformer
+from repro_torch.models import convert, kvcache, moe, transformer
 from repro_torch.serve import engine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -60,9 +61,11 @@ def test_no_jax_or_reference_import(path):
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("kernels.window_distance", "kernels.flash_attention",
-              "kernels.decode_attention", "configs.base", "models.layers",
-              "models.kvcache", "models.transformer", "models.convert",
-              "serve.batching", "serve.engine", "launch.serve"):
+              "kernels.decode_attention", "kernels.moe_gmm", "configs.base",
+              "models.layers", "models.kvcache", "models.transformer",
+              "models.moe", "models.convert", "core.expert_slots",
+              "serve.batching", "serve.engine", "launch.serve",
+              "bench.bench_expert_slots"):
         assert f"repro_torch.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -151,6 +154,21 @@ def test_model_entry_points_default_to_cuda_and_raise_without_a_card(
         engine.model_batcher(cfg, params, 2, 16)
     cache = transformer.init_cache(cfg, 2, 16, device="cpu")
     assert cache[0][0]["k"].device.type == "cpu"
+    # the MoE half: the slot engine, its tracker and the expert weights
+    cfg = cb.get_config("arctic-480b").smoke()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_params(cfg, gen)
+    params = transformer.init_params(cfg, gen, device="cpu")
+    tenant = lambda: [engine.Tenant("t", np.zeros((1, 4), np.int32))]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.SlotServeEngine(cfg, params, engine.EngineConfig(), tenant())
+    slot_cfg = expert_slots.ExpertSlotConfig(8, 2, 1 << 20)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        expert_slots.init_state(slot_cfg)
+    eng = engine.SlotServeEngine(cfg, params, engine.EngineConfig(),
+                                 tenant(), max_len=8, device="cpu")
+    assert eng.run(2)["steps"] == 2
+    assert eng.tenants[0].cache[0][0]["k"].device.type == "cpu"
 
 
 def test_forced_attention_kernels_on_cpu_tensors_raise():
@@ -171,3 +189,26 @@ def test_forced_attention_kernels_on_cpu_tensors_raise():
                                  mesh=object())
     assert (flash_attention.flash_attention.launches,
             decode_attention.decode_attention.launches) == before
+
+
+def test_forced_moe_kernels_on_cpu_tensors_raise():
+    """The grouped-FFN kernels run only on CUDA tensors: forcing them on
+    CPU tensors raises, through the wrappers and through the model's MoE
+    layer, and launches nothing."""
+    x, w = torch.zeros((2, 8, 16)), torch.zeros((2, 16, 32))
+    wo = torch.zeros((2, 32, 16))
+    counts = torch.ones(2, dtype=torch.int32)
+    before = (moe_gmm.moe_gmm.launches, moe_gmm.moe_gmm_skip.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm.moe_gmm(x, w, w, wo, use_kernel="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm.moe_gmm_skip(x, w, w, wo, counts, use_kernel=True)
+    cb.load_all()
+    cfg = cb.get_config("arctic-480b").smoke()
+    p = {k: v[0] for k, v in moe.init_moe(torch.Generator(), cfg, 1,
+                                          "cpu").items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        moe.moe_apply(p, torch.zeros((1, 3, cfg.d_model)), cfg,
+                      skip_empty=True, use_kernel="kernel")
+    assert (moe_gmm.moe_gmm.launches, moe_gmm.moe_gmm_skip.launches) == \
+        before

@@ -1,12 +1,14 @@
 """The port's decoder (`repro_torch.models.transformer`) against the JAX
-package's (`repro.models.transformer`) for every attention-only arch at
-smoke size, in f32: the same numpy weights (`convert.numpy_params`, with
-the norm scales and biases perturbed so they count) and inputs into both;
-prefill logits, the prefill cache and 8 teacher-forced decode steps
-(logits and cache) agree to 1e-4 (f32 rounding of different summation
-orders over 2 layers).  Plus the port's own golden check: prefill then
-decode reproduces the full-sequence logits, as test_models.py holds the
-JAX package to."""
+package's (`repro.models.transformer`) for every attention-only arch and
+both MoE archs at smoke size, in f32: the same numpy weights
+(`convert.numpy_params`, with the norm scales and biases perturbed so
+they count) and inputs into both; prefill logits, the prefill cache and
+8 teacher-forced decode steps (logits and cache) agree to 1e-4 (f32
+rounding of different summation orders over 2 layers), and every MoE
+layer's `expert_load` equals JAX's exactly.  Plus the port's own golden
+check: prefill then decode reproduces the full-sequence logits, as
+test_models.py holds the JAX package to (the MoE smoke configs'
+capacity factor of 8 drops no token, so the two capacities agree)."""
 import dataclasses
 
 import jax
@@ -28,6 +30,7 @@ tcb.load_all()
 
 ATTN_ARCHS = ["granite-3-2b", "qwen1.5-4b", "qwen1.5-110b", "minitron-4b",
               "musicgen-medium", "qwen2-vl-7b"]
+MOE_ARCHS = ["arctic-480b", "llama4-maverick-400b-a17b"]
 TOL = 1e-4
 B, T0, STEPS = 2, 9, 8
 
@@ -101,27 +104,61 @@ def _cache_close(tcache, jcache):
                 _close(tc[n], jc[n])
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def _aux_equal(taux, jaux):
+    """Per segment and block: {} or {"expert_load": (n, E) int32}, equal."""
+    for tseg, jseg in zip(taux, jaux, strict=True):
+        for ta, ja in zip(tseg, jseg, strict=True):
+            assert set(ta) == set(ja)
+            for k in ta:
+                assert ta[k].dtype == torch.int32
+                np.testing.assert_array_equal(ta[k].numpy(),
+                                              np.asarray(ja[k]))
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_ARCHS)
 def test_prefill_and_decode_match_jax(arch):
     jcfg, jp, tcfg, tp = _both(arch)
     batch = _batch(tcfg, B, T0 + STEPS)
     pre = {k: v[:, :T0] for k, v in batch.items()}
-    jl, jcache, _ = jt.prefill(jcfg, jp, jax.tree_util.tree_map(
+    jl, jcache, jaux = jt.prefill(jcfg, jp, jax.tree_util.tree_map(
         jnp.asarray, pre))
-    tl, tcache, _ = tt.prefill(tcfg, tp, pre)
+    tl, tcache, taux = tt.prefill(tcfg, tp, pre)
     assert tl.shape == (B, 1, tcfg.vocab)
     _close(tl, jl)
     _cache_close(tcache, jcache)
+    _aux_equal(taux, jaux)
 
     jcache, tcache = _pad_jax(jcache, T0 + STEPS), _pad_torch(tcache,
                                                                T0 + STEPS)
     for i in range(T0, T0 + STEPS):
         db = _step(tcfg, batch, i)
-        jl, jcache, _ = jt.decode_step(
+        jl, jcache, jaux = jt.decode_step(
             jcfg, jp, jax.tree_util.tree_map(jnp.asarray, db), jcache)
-        tl, tcache, _ = tt.decode_step(tcfg, tp, db, tcache)
+        tl, tcache, taux = tt.decode_step(tcfg, tp, db, tcache)
         _close(tl, jl)
+        _aux_equal(taux, jaux)
     _cache_close(tcache, jcache)
+
+
+def test_moe_decode_takes_the_router_bias():
+    """A decode step's `router_bias` reaches every MoE layer's router, as
+    in the JAX package: loads and logits equal JAX's with the bias."""
+    jcfg, jp, tcfg, tp = _both("arctic-480b")
+    batch = _batch(tcfg, B, T0 + 1)
+    _, jcache, _ = jt.prefill(jcfg, jp, {"tokens": jnp.asarray(
+        batch["tokens"][:, :T0])})
+    _, tcache, _ = tt.prefill(tcfg, tp, {"tokens": batch["tokens"][:, :T0]})
+    jcache, tcache = _pad_jax(jcache, T0 + 1), _pad_torch(tcache, T0 + 1)
+    bias = np.full((tcfg.num_experts,), -6.0, np.float32)
+    bias[[2, 5]] = 6.0
+    db = dict(_step(tcfg, batch, T0), router_bias=bias)
+    jl, _, jaux = jt.decode_step(
+        jcfg, jp, jax.tree_util.tree_map(jnp.asarray, db), jcache)
+    tl, _, taux = tt.decode_step(tcfg, tp, db, tcache)
+    _close(tl, jl)
+    _aux_equal(taux, jaux)
+    load = taux[0][0]["expert_load"]
+    assert load[:, [2, 5]].sum() == load.sum() == 2 * B * tcfg.top_k
 
 
 def test_jax_cache_carries_across():
@@ -142,7 +179,7 @@ def test_jax_cache_carries_across():
     _cache_close(tcache, jcache)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_ARCHS)
 def test_prefill_decode_golden_consistency(arch):
     """Teacher-forced decode reproduces the full-sequence logits (the
     check test_models.py holds the JAX package to, at its 2e-3)."""
@@ -168,10 +205,12 @@ def _shapes(tree):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "qwen1.5-4b",
-                                  "musicgen-medium"])
+                                  "musicgen-medium", "arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
 def test_init_params_tree_matches_jax(arch):
     """Same nesting, leaf shapes and dtypes as the JAX package's
-    init_params, both from init_params and from numpy_params."""
+    init_params, both from init_params and from numpy_params (a moe
+    block's router stays float32 in a bf16 model)."""
     jcfg = dataclasses.replace(jcb.get_config(arch).smoke(),
                                dtype="bfloat16")
     tcfg = dataclasses.replace(tcb.get_config(arch).smoke(),
@@ -225,8 +264,7 @@ def test_decoder_module_holds_the_tree():
 
 
 def test_later_blocks_and_sharding_raise():
-    for arch, slice_name in (("arctic-480b", "MoE"),
-                             ("recurrentgemma-9b", "recurrentgemma"),
+    for arch, slice_name in (("recurrentgemma-9b", "recurrentgemma"),
                              ("rwkv6-7b", "rwkv6")):
         cfg = tcb.get_config(arch).smoke()
         with pytest.raises(NotImplementedError, match=slice_name):
