@@ -5,8 +5,9 @@ Run it from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the port's four kernels from `src/repro_torch/kernels/csrc/`
-with `nvcc` (one process per source, all started together).
+It builds the port's six kernel sources from
+`src/repro_torch/kernels/csrc/` with `nvcc` (one process per source, all
+started together).
 
 The simulator slice: it holds both entry points of the window kernel
 (`window_grid`, `window_cell`) against their plain PyTorch versions on the
@@ -47,9 +48,26 @@ slot-hit bias) through `SlotServeEngine`; and times both entry points at
 the serving shapes beside their bound, their plain versions and three
 `torch.bmm` calls (timed only, never on the path).
 
+The recurrent slice: it holds the RG-LRU and WKV scans (`rglru_scan`,
+`rwkv6_scan`) against their plain versions (test_kernels.py's shapes,
+ragged T, bf16 and f32, from zero and from given states, and the
+full-width prefill and decode shapes) and the attention kernels at
+recurrentgemma's head dim 256 with 16 query heads over 1; runs
+recurrentgemma-9b (3 layers: one (rec, rec, lattn) segment) and rwkv6-7b
+(2 layers) at full width, f32, through the kernels and holds 9 steps of
+logits to the JAX package's (constants below, from `tests/jax_anchor.py`);
+times both scans and both attention kernels at head dim 256 beside their
+bounds and plain versions (SDPA for the attention ones); then, for each
+model at full width and depth in bf16, checks the kernel path against the
+plain one (recurrentgemma: a 4,096-token prompt, two windows, then decode
+past 4,096 around the ring; rwkv6: 1,024 tokens), profiles a serving
+step and an admission, and serves 16 requests through
+`repro_torch.launch.serve` (the main path of this slice, each kernel's
+launches counted).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
-the `kernels` line (all six kernels: launches on their slice's main
+the `kernels` line (all eight kernels: launches on their slice's main
 path, times, bound, error) and
 `{"ok": true, "device": ...}`.
 
@@ -251,6 +269,149 @@ MOE_JAX_ANCHOR = {
     ],
     "tokens_sha1": "b566d2a65ceecfa73e1546c4097358da29f688cc",
 }
+# tests/jax_anchor.py's recurrentgemma and rwkv6 lines (the JAX package
+# on the CPU, f32, numpy_params(cfg, 0), 3 and 2 layers at full width)
+REC_JAX_ANCHOR = {
+    "recurrentgemma-9b": {
+        "ids": [
+            461, 8699, 9978, 15036, 23921, 44712, 65589, 77712, 83591, 90334,
+            91706, 106556, 107556, 113614, 120299, 126662, 127982, 132954,
+            147744, 172946, 179458, 186109, 190434, 192685, 203258, 204045,
+            204286, 219055, 223564, 231597, 239988, 253367],
+        "logits": [
+            [1.018698, 0.735514, -0.8984888, -0.3085579, -0.6928808,
+            -0.9313681, -1.040863, -0.8109363, 0.9416547, 0.917736, 0.5373851,
+            -1.390789, 0.2507879, -1.260308, -0.009328227, 0.8942477,
+            -1.453488, 0.583285, -1.497176, 0.5575449, 0.07587409, 0.09495304,
+            0.3814689, 0.3075298, 1.352969, 0.9748912, 0.2401006, 0.7727683,
+            0.5471948, 0.1736068, -1.087383, 0.5205967],
+            [-1.728733, 1.03149, 1.59414, -0.1691406, -0.6164652, -1.342843,
+            1.51504, 0.7599623, 1.555015, 0.9841584, 0.4455002, -0.3055396,
+            -0.003904819, 1.103458, 0.2283777, 0.1861021, 0.8716831, 1.339756,
+            -3.546087, 0.2771772, -1.711669, -0.8209175, 0.2095081, 1.319246,
+            0.3824846, 0.2899546, 0.4873616, 2.356256, 0.2168267, -1.095273,
+            0.6809593, 0.0453755],
+            [0.1073881, 0.822058, -1.455932, -1.271351, 0.1041657, -0.637399,
+            2.264084, -0.7208947, -1.738868, 1.293093, 1.216326, 1.212418,
+            0.9372728, -0.2722662, -0.1665189, -1.005948, -0.03496424,
+            0.4154847, -1.370112, 0.0212053, 1.131291, -0.9691015, -0.9843297,
+            0.7633576, 2.133091, -0.814183, -0.01240006, -0.6463373, 1.380478,
+            0.2670448, -0.2911757, 0.6155074],
+            [-0.1789533, -1.050211, 1.581204, 0.4320412, 0.09379181,
+            -0.2843785, 1.985458, -1.317755, 2.149033, 0.8364466, 0.9561391,
+            0.04910415, 0.1346583, 0.1238976, 0.4708491, 0.9550574,
+            -0.09293137, -2.336084, 0.1652075, 1.113646, 0.1135947, -0.4335955,
+            -0.2394716, 0.05581877, -0.6144457, -0.6023268, -0.6515675,
+            0.4454378, 1.765241, 1.196804, 0.7467095, 0.3620026],
+            [0.7277739, -1.829059, 1.006321, 1.098695, 1.21548, 0.06160735,
+            0.748718, -0.7589518, 1.37331, 0.5634727, -0.4425386, -0.5785635,
+            -0.4705786, -0.9701193, 0.2112734, 0.3028111, -0.1048598, -1.19434,
+            -0.7354079, -1.39111, 0.8166099, -1.415748, 0.6369444, 0.5442073,
+            2.107854, -0.8066988, -0.3112919, -0.6574033, -2.377915,
+            -0.6194635, 1.650569, -0.5796881],
+            [0.6663041, -0.7134057, -2.231908, -0.2347042, -0.6875417,
+            -1.878944, -2.021741, 0.433403, 1.330397, 0.7421126, 0.4858523,
+            0.5050385, 2.488032, 0.02767721, -0.9681817, 0.007057459,
+            -0.3348206, 1.647995, 0.9006841, 0.1024875, 0.3406851, 1.003414,
+            0.3185836, 0.5162242, 0.9581241, 0.4410259, -0.3729911, -0.2986686,
+            0.2966665, 0.05074862, -0.7740509, 0.9170766],
+            [0.2743545, 0.8881807, -0.8489162, 1.18491, -1.905485, 0.7473803,
+            1.623532, 1.328535, -1.000232, 1.574853, 1.417011, 0.3593651,
+            -0.4913267, -0.2898337, 0.4214064, 1.535755, -0.6092067, 0.211298,
+            -0.05414138, -0.5592288, -0.03891622, 0.4611835, -0.4617361,
+            0.5687518, 2.897495, 1.088356, -0.2817458, -0.002415877, 0.2851919,
+            0.8365051, -1.882184, 1.778705],
+            [0.8571795, -0.08944954, 0.4088546, 0.623067, -0.2710397, 1.417598,
+            2.293005, -1.675439, -0.05578532, 1.445052, -0.27602, -0.7938517,
+            -0.2085311, 0.2113741, -2.894552, 0.180713, -1.404844, -1.353815,
+            0.5088928, -1.445585, -0.6801339, 0.02629273, 0.6178017, 1.90996,
+            0.2791085, 0.6141564, -0.9412677, 1.599119, -1.038888, 0.9997733,
+            -0.6366812, -1.649195],
+            [0.4419953, 0.5214753, -0.4697227, -1.055304, 0.4629828, -0.521011,
+            -0.5366484, 1.456022, -0.5474143, -3.010437, -0.6598428, -0.93243,
+            1.726148, -0.5286554, -2.646858, 0.091088, 0.9049759, -1.564339,
+            -0.4076768, -0.7028992, -0.5864503, -1.9981, 0.2863394, -0.2034274,
+            1.213194, -0.1969817, -0.4147846, 0.3508691, -0.4163571, 0.1149586,
+            0.7014213, -0.07194171],
+        ],
+        "argmax": [
+            244080, 254731, 166595, 210872, 238892, 76464, 189094, 117918,
+            231673],
+        "gap": [
+            0.04731, 0.6174, 0.04346, 0.1452, 0.01492, 0.304, 0.2585, 0.1329,
+            0.1313],
+        "tokens_sha1": "628ecd36148d22ab6b921ea7a271f98c664a94dd",
+    },
+    "rwkv6-7b": {
+        "ids": [
+            118, 2226, 2553, 3849, 6123, 11445, 16790, 19892, 21396, 23124,
+            23476, 27271, 27524, 29083, 30787, 32414, 32759, 34030, 37812,
+            44261, 45941, 47637, 48734, 49319, 52024, 52223, 52283, 56060,
+            57222, 59284, 61421, 64858],
+        "logits": [
+            [-2.350285, -0.4726654, -0.7917899, -1.264399, -1.973746, 0.390784,
+            -0.7060737, 0.5510365, 0.7501987, -0.757821, -0.3116773,
+            -0.6023837, -1.501278, 0.7426205, 0.00520525, 1.683385, -0.3995381,
+            0.3374277, 0.01837532, -0.8070127, -0.9728953, -0.007300139,
+            -0.02565803, 0.0724665, -0.05088924, 1.732957, -0.6765625,
+            -0.3728065, 1.635341, -0.1459246, 0.5451612, -1.249231],
+            [-0.2565507, -1.069514, 0.1950184, -1.070861, 0.02756393,
+            -0.3472816, -0.2209993, 0.5256323, 0.2854192, -0.130297, -1.415007,
+            -1.099218, -1.267116, 0.5897917, 0.8183559, 0.7461125, -0.9835152,
+            0.3364482, 0.9296156, 0.1352107, -0.5562751, -0.2579877, 0.7063568,
+            0.5581586, -1.290525, 1.232774, -0.6071048, -1.52112, 1.526107,
+            -0.1573931, 0.7914397, 0.07275136],
+            [0.05796605, -2.306087, -0.3576321, 0.6038936, -0.03243478,
+            0.1072825, -0.9298621, 0.1354627, -0.8974478, 0.7613785,
+            -0.2809737, -1.668024, -0.6003557, -0.2984824, 1.653612, 0.3142149,
+            0.5912043, 0.4438815, -0.9680923, -0.02370439, -0.4994634,
+            0.07642838, 2.866967, 0.4038159, 0.3613704, 0.8692777, -0.5751393,
+            -0.392235, 0.3336165, 1.334867, -0.3891317, -0.7960103],
+            [0.3800783, -1.880003, 0.8981623, 1.784161, 0.03748908, 0.3569387,
+            0.7049616, 0.2110332, 0.2114167, -0.3940758, 0.4140187, 0.7475567,
+            -0.009711237, -0.2161764, 1.332819, -1.67108, -0.8429907,
+            0.0666237, 1.216287, -1.459478, -0.04784252, 1.85639, 0.9808472,
+            0.3190868, -0.2145577, 1.215142, -1.378512, 0.326036, -1.000824,
+            0.6546894, -0.5091891, -0.1586983],
+            [0.4302396, -0.6905975, 0.1055214, 2.352709, 0.2029465, 0.9200099,
+            2.196998, 0.744951, 0.6440728, -0.5781252, -0.4548102, 1.678893,
+            -0.4277707, 0.6246778, 0.5389805, -1.934963, -0.1919302, 0.5395667,
+            0.3980522, -1.616039, -1.151129, 0.659846, 1.132425, 0.1829587,
+            0.9167669, 2.571751, 1.955458, -1.364695, -0.2511495, 0.6919881,
+            -0.2768495, -1.221172],
+            [-0.4892927, -1.594279, 0.2194955, 1.25143, 0.02756072, 0.07089557,
+            -0.1460209, 0.4482315, 0.3939232, -0.1351599, -1.022245,
+            0.0009444409, -0.3075049, -0.070115, 1.415668, -0.8221778,
+            0.1202878, -0.1764842, 0.5534784, -0.4802046, -1.434003,
+            -0.4043944, 2.632312, 0.15128, 2.339252, -0.212207, 0.5072853,
+            -0.2146149, 1.123033, 0.5756732, 0.03900599, -1.264405],
+            [-0.176478, -0.03167297, 0.170427, 1.037448, 0.6184548, -0.1538451,
+            2.575498, -0.7564026, 1.198465, -1.811432, -0.5742984, -1.864585,
+            -0.9834617, -2.299915, 0.759867, -1.403256, -1.490885, -1.33944,
+            0.2596593, -0.393157, 0.1068499, 0.8763356, 1.149254, -0.2756452,
+            -0.4947666, 0.8060367, 0.3021673, -0.7396038, 1.695276, 0.5699043,
+            -0.2545513, -0.7716683],
+            [0.07568986, 0.1095396, 1.334091, 0.8803688, 0.8666777, -0.7852255,
+            0.2551405, -0.2631436, 1.947149, -4.073595, -2.22992, -2.113391,
+            0.124288, -1.07856, -0.07641777, -1.541324, -0.9687642, 0.9686516,
+            0.9071197, -0.1898416, -1.42186, -1.506901, -1.895514, 1.130354,
+            -1.572088, 0.3462968, 0.60166, -1.400802, 0.2156912, 0.5179883,
+            1.593397, 0.3105394],
+            [-1.19993, -0.2664025, 0.8127962, 0.7818402, -1.288104, 2.137602,
+            -0.5608474, 0.1041086, -0.5369869, -1.108613, -0.2811551,
+            -0.9741727, -0.7605146, -1.426836, 0.2582895, 0.9303343, -2.132182,
+            -2.083207, -0.2883422, 0.8577261, -0.8672779, 0.02282906,
+            -2.416172, -0.4423305, 0.1474737, 0.8637397, 2.607003, -0.08798267,
+            0.02295917, 0.1505117, 0.3928798, -0.4750929],
+        ],
+        "argmax": [
+            39039, 58907, 12527, 9943, 40923, 24716, 22702, 64270, 26557],
+        "gap": [
+            1.267, 0.3025, 0.01763, 0.08427, 0.1067, 0.259, 0.3795, 0.1032,
+            0.08967],
+        "tokens_sha1": "8b59eb7d22dfb3357b6f7228474f4ff49350fa20",
+    },
+}
 # the anchor's logits are f32 on the card against f32 on the JAX
 # package's CPU run: 2 layers of d 2048 / ff 8192 products in another
 # summation order leave ~1e-5; the argmax must agree wherever the JAX
@@ -395,17 +556,22 @@ def phase_build() -> None:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
     from repro_torch.kernels import window_distance as wd
+    mods = (("window_distance", wd), ("flash_attention", fa),
+            ("decode_attention", da), ("moe_gmm", gmm),
+            ("rglru_scan", rgs), ("rwkv6_scan", rws))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        futs = {name: pool.submit(mod.build, True) for name, mod in
-                (("window_distance", wd), ("flash_attention", fa),
-                 ("decode_attention", da), ("moe_gmm", gmm))}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futs = {name: pool.submit(mod.build, True) for name, mod in mods}
         libs = {name: os.path.relpath(f.result(), ROOT)
                 for name, f in futs.items()}
     secs = round(time.perf_counter() - t0, 3)
     emit("build", seconds=secs, library=libs.pop("window_distance"))
     emit("build_moe", seconds=secs, library=libs.pop("moe_gmm"))
+    emit("build_recurrent", seconds=secs,
+         libraries={k: libs.pop(k) for k in ("rglru_scan", "rwkv6_scan")})
     emit("build_attention", seconds=secs, libraries=libs)
 
 
@@ -809,6 +975,25 @@ def anchor_inputs(vocab: int):
     return tokens, ids
 
 
+def _hold_to_anchor(rows, ids, anchor: dict, what: str):
+    """Logits rows (steps, V) against a JAX anchor: every compared logit
+    within ANCHOR_TOL, and the argmax equal wherever JAX's top-2 gap
+    exceeds 2 ANCHOR_TOL (else JAX's winner must still be a top logit).
+    Returns (max abs error, argmax)."""
+    got = torch.stack(rows).double().cpu().numpy()
+    err = float(np.abs(got[:, ids] - np.asarray(anchor["logits"])).max())
+    check(err <= ANCHOR_TOL, f"{what} logits differ from JAX's by {err}")
+    argmax = got.argmax(1).tolist()
+    for step, (a, w, gap) in enumerate(zip(argmax, anchor["argmax"],
+                                           anchor["gap"])):
+        if gap > 2 * ANCHOR_TOL:
+            check(a == w, f"{what} step {step}: argmax {a}, JAX {w}")
+        else:   # a near-tie in the JAX run: its winner must still tie
+            check(got[step].max() - got[step, w] <= 2 * ANCHOR_TOL,
+                  f"{what} step {step}: JAX's argmax {w} is not a top logit")
+    return err, argmax
+
+
 def phase_model_jax_anchor(dev) -> None:
     """granite-3-2b at full width, 2 layers, f32, weights from
     `numpy_params(cfg, 0)`: prefill 97 tokens and decode 8 through the
@@ -842,18 +1027,7 @@ def phase_model_jax_anchor(dev) -> None:
     launched = (fa.flash_attention.launches - f0,
                 da.decode_attention.launches - d0)
     check(launched == (2, 16), f"anchor launched {launched}, not (2, 16)")
-    got = torch.stack(rows).double().cpu().numpy()
-    want = np.asarray(JAX_ANCHOR["logits"])
-    err = float(np.abs(got[:, ids] - want).max())
-    check(err <= ANCHOR_TOL, f"anchor logits differ from JAX's by {err}")
-    argmax = got.argmax(1).tolist()
-    for step, (a, w, gap) in enumerate(zip(argmax, JAX_ANCHOR["argmax"],
-                                           JAX_ANCHOR["gap"])):
-        if gap > 2 * ANCHOR_TOL:
-            check(a == w, f"anchor step {step}: argmax {a}, JAX {w}")
-        else:   # a near-tie in the JAX run: its winner must still tie
-            check(got[step].max() - got[step, w] <= 2 * ANCHOR_TOL,
-                  f"anchor step {step}: JAX's argmax {w} is not a top logit")
+    err, argmax = _hold_to_anchor(rows, ids, JAX_ANCHOR, "anchor")
     emit("model_jax_anchor", arch="granite-3-2b", layers=2, dtype="float32",
          prompt=prompt, decode_steps=8, compared_ids=len(ids),
          max_abs_err=err, tolerance=ANCHOR_TOL, argmax=argmax,
@@ -948,10 +1122,11 @@ def phase_model_serve(dev) -> dict:
 
 def _kernel_ms(prof) -> dict:
     """Device milliseconds of the kernels a torch.profiler run saw, summed
-    by kind (the attention kernels, the two grouped-FFN entry points,
-    GEMMs, everything else)."""
+    by kind (the attention kernels, the two grouped-FFN entry points, the
+    two recurrent scans, GEMMs, everything else)."""
     kinds = dict.fromkeys(("flash_attention", "decode_attention", "moe_gmm",
-                           "moe_gmm_skip", "gemm", "other"), 0.0)
+                           "moe_gmm_skip", "rglru_scan", "rwkv6_scan",
+                           "gemm", "other"), 0.0)
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -967,6 +1142,10 @@ def _kernel_ms(prof) -> dict:
             kind = "moe_gmm_skip"
         elif "moe_gmm_kernel" in name:
             kind = "moe_gmm"
+        elif "rglru_kernel" in name:
+            kind = "rglru_scan"
+        elif "rwkv6_kernel" in name:
+            kind = "rwkv6_scan"
         elif any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass")):
             kind = "gemm"
         else:
@@ -1286,18 +1465,7 @@ def phase_moe_jax_anchor(dev) -> None:
                                                MOE_JAX_ANCHOR["expert_load"])):
         check(got_l == want_l,
               f"anchor step {step}: expert load {got_l}, JAX {want_l}")
-    got = torch.stack(rows).double().cpu().numpy()
-    want = np.asarray(MOE_JAX_ANCHOR["logits"])
-    err = float(np.abs(got[:, ids] - want).max())
-    check(err <= ANCHOR_TOL, f"anchor logits differ from JAX's by {err}")
-    argmax = got.argmax(1).tolist()
-    for step, (a, w, gap) in enumerate(zip(argmax, MOE_JAX_ANCHOR["argmax"],
-                                           MOE_JAX_ANCHOR["gap"])):
-        if gap > 2 * ANCHOR_TOL:
-            check(a == w, f"anchor step {step}: argmax {a}, JAX {w}")
-        else:   # a near-tie in the JAX run: its winner must still tie
-            check(got[step].max() - got[step, w] <= 2 * ANCHOR_TOL,
-                  f"anchor step {step}: JAX's argmax {w} is not a top logit")
+    err, argmax = _hold_to_anchor(rows, ids, MOE_JAX_ANCHOR, "moe anchor")
     emit("moe_jax_anchor", arch="arctic-480b", layers=1,
          experts=cfg.num_experts, top_k=cfg.top_k,
          capacity_factor=cfg.capacity_factor, dtype="float32",
@@ -1559,6 +1727,459 @@ def phase_moe_serve(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the recurrent slice: the RG-LRU and WKV scans, recurrentgemma-9b, rwkv6-7b
+# ---------------------------------------------------------------------------
+
+REC_SOURCES = {"rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+               "rwkv6_scan": "src/repro_torch/kernels/csrc/rwkv6_scan.cu"}
+REC_REPLACES = {"rglru_scan": "src/repro/kernels/rglru_scan.py:71",
+                "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:76"}
+# kernel against plain version: test_kernels.py's tolerances; bf16 inputs
+# are widened exactly in both, so the f32 tolerances hold for them too
+SCAN_TOL = {"rglru_scan": 2e-5, "rwkv6_scan": 5e-4}
+RG, RWKV = "recurrentgemma-9b", "rwkv6-7b"
+RGLRU_CASES = (  # (B, T, W, with h0): test_kernels.py's, ragged, the path's
+    (2, 128, 128, False), (1, 256, 256, False), (2, 64, 512, False),
+    (3, 77, 200, True), (1, 4096, 4096, True), (8, 1, 4096, True))
+RWKV_CASES = (  # (B, T, H, N, with S0)
+    (1, 128, 2, 32, False), (2, 128, 1, 64, False), (1, 64, 3, 16, False),
+    (2, 37, 4, 16, True), (1, 1024, 64, 64, True), (8, 1, 64, 64, True))
+ATTN256_FLASH = (  # (B, T, H, KH, D, window): recurrentgemma's local attn
+    (1, 97, 16, 1, 256, 2048), (2, 333, 16, 1, 256, 128),
+    (1, 1024, 16, 1, 256, 2048), (1, 4096, 16, 1, 256, 2048))
+ATTN256_DECODE = ((8, 2048, 16, 1, 256), (4, 100, 16, 1, 256))
+# the anchors' depth: one (rec, rec, lattn) segment; two rwkv blocks
+ANCHOR_LAYERS = {RG: 3, RWKV: 2}
+# the full-depth bf16 check: a prompt of two windows (the JAX model's
+# two-chunk path) and 8 steps past it, around the ring; rwkv6 1,024
+DEEP_PROMPT = {RG: 4096, RWKV: 1024}
+# the dtype whose kernel-vs-plain check is gated.  rwkv6 with random
+# weights is chaotic in bf16: on the CPU, at d 512 / 1,024 and 32 layers,
+# its plain path against itself with the scan summed in f64 (a
+# perturbation of f32 rounding size) differs by 63 % / 41 % relative L2
+# (0.33 % / 0.44 % in f32), so its bf16 end-to-end difference measures
+# bf16's rounding, not the kernel: it is gated in f32 (30 GB of weights)
+# and its bf16 value reported.  recurrentgemma's bf16 value stays gated.
+DEEP_GATED_DTYPE = {RG: "bfloat16", RWKV: "float32"}
+# the slice's main paths: 16 requests each through the launcher; rows
+# whose recurrentgemma prompt passes 1,984 tokens wrap the window ring
+REC_SERVE = {
+    RG: dict(num_requests=16, batch=8, max_len=4096, new_tokens=64,
+             prompt_len=(100, 2040)),
+    RWKV: dict(num_requests=16, batch=8, max_len=2048, new_tokens=64,
+               prompt_len=(100, 1500))}
+# f32 operations a scan does: ~22 for an RG-LRU element (two sigmoids,
+# softplus-scaled decay, exp, sqrt and the FMA), 4 N^2 for a WKV token
+# and head; peak f32 rate of the CUDA cores (the on-chip guide's table)
+RGLRU_OPS_PER_ELEM = 22
+F32_FLOPS_PER_S = 67e12
+
+
+def _recurrent(arch: str, **kw):
+    from repro_torch.configs import base as cb
+    cb.load_all()
+    return dataclasses.replace(cb.get_config(arch), **kw)
+
+
+def _scan_inputs(name, case, dtype, gen, dev):
+    """Seeded inputs of one scan case, in test_kernels.py's distributions
+    (gate parameters N(0, 0.01), lam on [2, 6]; logw = -exp(N(0, 0.25)),
+    u ~ N(0, 0.01)); states N(0, 1)."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    if name == "rglru_scan":
+        b, t, w, start = case
+        params = [r(w) * 0.1 for _ in range(4)]
+        params.append(torch.linspace(2.0, 6.0, w, device=dev))
+        return (r(b, t, w).to(dtype), *params, r(b, w) if start else None)
+    b, t, h, n, start = case
+    rkv = [r(b, t, h, n).to(dtype) for _ in range(3)]
+    return (*rkv, -torch.exp(r(b, t, h, n) * 0.5), r(h, n) * 0.1,
+            r(b, h, n, n) if start else None)
+
+
+def _scan_err(name, args, what: str) -> float:
+    """The scan against its plain version on one input: both outputs
+    held to SCAN_TOL; returns the largest difference."""
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
+    mod = rgs if name == "rglru_scan" else rws
+    got = getattr(mod, name)(*args)
+    want = getattr(mod, f"{name}_plain")(*args)
+    tol = SCAN_TOL[name]
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol,
+                                   msg=lambda m: f"{name} {what}: {m}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def phase_scans_vs_plain(dev, errs: dict) -> None:
+    """Both scans against their plain versions, f32 and bf16 inputs:
+    test_kernels.py's shapes, a ragged T, a given initial state, and the
+    full-width prefill and decode shapes of the serving path."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst = {}
+    for name, cases in (("rglru_scan", RGLRU_CASES),
+                        ("rwkv6_scan", RWKV_CASES)):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = (name, str(dtype).split(".")[-1])
+            for case in cases:
+                err = _scan_err(name, _scan_inputs(name, case, dtype, gen,
+                                                   dev), f"{dtype} {case}")
+                worst[key] = max(worst.get(key, 0.0), err)
+    torch.cuda.synchronize()
+    for (name, _), err in worst.items():
+        errs[name] = max(errs[name], err)
+    emit("scans_vs_plain", rglru_cases=[list(c) for c in RGLRU_CASES],
+         rwkv6_cases=[list(c) for c in RWKV_CASES],
+         dtypes=["float32", "bfloat16"], tolerance=SCAN_TOL,
+         max_abs_err={f"{n} {d}": e for (n, d), e in worst.items()},
+         match=True)
+
+
+def phase_attention256_vs_plain(dev, errs: dict) -> None:
+    """Both attention kernels at recurrentgemma's head dim 256, 16 query
+    heads over 1 kv head, against their plain versions (bf16 and f32):
+    windowed prefills up to the 4,096-token prompt of two windows, and
+    decode over the 2,048-slot ring with ragged kv_len."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(15)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+        for b, t, h, kh, d, window in ATTN256_FLASH:
+            q, k, v = r(b, t, h, d), r(b, t, kh, d), r(b, t, kh, d)
+            err = _attn_err(fa.flash_attention(q, k, v, window=window),
+                            fa.flash_attention_plain(q, k, v, window=window),
+                            dtype, f"flash {dtype} T={t} D={d} "
+                                   f"window={window}")
+            worst[("flash", key)] = max(worst.get(("flash", key), 0.0), err)
+        for b, s, h, kh, d in ATTN256_DECODE:
+            q, kc, vc = r(b, h, d), r(b, s, kh, d), r(b, s, kh, d)
+            kv_len = torch.as_tensor(np.random.default_rng(s).integers(
+                1, s + 1, b).astype(np.int32), device=dev)
+            kv_len[0] = s
+            err = _attn_err(da.decode_attention(q, kc, vc, kv_len),
+                            da.decode_attention_plain(q, kc, vc, kv_len),
+                            dtype, f"decode {dtype} S={s} D={d}")
+            worst[("decode", key)] = max(worst.get(("decode", key), 0.0),
+                                         err)
+    torch.cuda.synchronize()
+    for (name, _), err in worst.items():
+        errs[f"{name}_attention"] = max(errs[f"{name}_attention"], err)
+    lib = da.common.library(da.SOURCE, da._declare)
+    emit("attention256_vs_plain", flash_cases=len(ATTN256_FLASH),
+         decode_cases=len(ATTN256_DECODE), dtypes=["float32", "bfloat16"],
+         tolerance=ATTN_TOL, max_abs_err={f"{n} {d}": e for (n, d), e in
+                                           worst.items()}, match=True,
+         decode_smem_bytes={"G=16 D=256": lib.decode_attention_smem_bytes(
+             16, 256)},
+         flash_smem_bytes={"D=256": 4 * (64 + 2 * 64) * (256 + 4)})
+
+
+def phase_recurrent_jax_anchor(dev, arch: str) -> None:
+    """recurrentgemma-9b (3 layers) or rwkv6-7b (2 layers) at full width,
+    f32, weights from `numpy_params(cfg, 0)`: prefill 97 tokens and
+    decode 8 through the kernels (the window ring and the states need no
+    padding); logits at 32 ids and the argmax of each step against the
+    JAX package's (REC_JAX_ANCHOR)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
+    from repro_torch.models import convert, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _recurrent(arch, num_layers=ANCHOR_LAYERS[arch], dtype="float32")
+    anchor = REC_JAX_ANCHOR[arch]
+    params = convert.params_from_numpy(convert.numpy_params(cfg, 0), dev,
+                                       torch.float32)
+    tokens, ids = anchor_inputs(cfg.vocab)
+    check(ids.tolist() == anchor["ids"] and
+          hashlib.sha1(tokens.tobytes()).hexdigest() ==
+          anchor["tokens_sha1"], "numpy drew other anchor inputs")
+    wrappers = {"rglru_scan": rgs.rglru_scan, "rwkv6_scan": rws.rwkv6_scan,
+                "flash_attention": fa.flash_attention,
+                "decode_attention": da.decode_attention}
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    prompt = 97
+    logits, cache, _ = transformer.prefill(cfg, params,
+                                           {"tokens": tokens[:, :prompt]})
+    rows = [logits[0, -1]]
+    for i in range(prompt, prompt + 8):
+        logits, cache, _ = transformer.decode_step(
+            cfg, params, {"tokens": tokens[:, i:i + 1],
+                          "positions": np.full((1,), i, np.int32)}, cache)
+        rows.append(logits[0, -1])
+    torch.cuda.synchronize()
+    launched = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+    types = [t for ts, n in transformer.segments(cfg) for t in ts
+             for _ in range(n)]
+    want = {"rglru_scan": 9 * types.count("rec"),
+            "rwkv6_scan": 9 * types.count("rwkv"),
+            "flash_attention": types.count("lattn"),
+            "decode_attention": 8 * types.count("lattn")}
+    check(launched == want, f"{arch} anchor launched {launched}, not {want}")
+    err, argmax = _hold_to_anchor(rows, ids, anchor, f"{arch} anchor")
+    emit("recurrent_jax_anchor", arch=arch, layers=cfg.num_layers,
+         dtype="float32", prompt=prompt, decode_steps=8,
+         compared_ids=len(ids), max_abs_err=err, tolerance=ANCHOR_TOL,
+         argmax=argmax,
+         argmax_match=sum(a == w for a, w in zip(argmax, anchor["argmax"])),
+         launches={n: c for n, c in launched.items() if c})
+    del params, cache
+
+
+def phase_recurrent_consistency(dev, cfg, params) -> None:
+    """The model at full width and depth, random weights: one prompt of
+    DEEP_PROMPT tokens and 8 decode steps through the kernels against the
+    plain path, logits within DEEP_BF16_REL where `cfg.dtype` is the
+    arch's DEEP_GATED_DTYPE, reported otherwise (recurrentgemma's prompt
+    is two windows, so the steps at 4,096.. wrap the ring)."""
+    from repro_torch.models import transformer
+    arch = cfg.name
+    b, t0, steps = 1, DEEP_PROMPT[arch], 8
+    tokens = np.random.default_rng(9).integers(
+        0, cfg.vocab, (b, t0 + steps)).astype(np.int32)
+    out = {}
+    t_start = time.perf_counter()
+    for mode in ("auto", "plain"):
+        logits, cache, _ = transformer.prefill(
+            cfg, params, {"tokens": tokens[:, :t0]}, use_kernel=mode)
+        rows = [logits]
+        for i in range(t0, t0 + steps):
+            logits, cache, _ = transformer.decode_step(
+                cfg, params, {"tokens": tokens[:, i:i + 1],
+                              "positions": np.full((b,), i, np.int32)},
+                cache, use_kernel=mode)
+            rows.append(logits)
+        out[mode] = torch.cat(rows, 1)
+        del cache
+    torch.cuda.synchronize()
+    rel = _rel(out["auto"], out["plain"])
+    gated = cfg.dtype == DEEP_GATED_DTYPE[arch]
+    check(not gated or rel <= DEEP_BF16_REL,
+          f"{arch} {cfg.dtype} consistency: relative L2 {rel} > "
+          f"{DEEP_BF16_REL}")
+    emit("recurrent_consistency", arch=arch, layers=cfg.num_layers,
+         dtype=cfg.dtype, batch=b, prefill=t0, decode_steps=steps,
+         rel_l2_kernel_vs_plain=rel,
+         tolerance=DEEP_BF16_REL if gated else None,
+         argmax_agree=float((out["auto"].argmax(-1) ==
+                             out["plain"].argmax(-1)).float().mean()),
+         seconds=round(time.perf_counter() - t_start, 3))
+
+
+def phase_recurrent_serve(dev, arch: str) -> dict:
+    """The slice's main path for one arch: `repro_torch.launch.serve`
+    serving it at full width and depth, bf16 (REC_SERVE).  Every kernel's
+    count is set to 0 just before and read just after; each recurrent
+    block launches its scan once a prefill and once a decode step, each
+    local-attention block the flash kernel once a prefill and the decode
+    kernel once a step."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    kw = REC_SERVE[arch]
+    cfg = _recurrent(arch)
+    wrappers = {"rglru_scan": rgs.rglru_scan, "rwkv6_scan": rws.rwkv6_scan,
+                "flash_attention": fa.flash_attention,
+                "decode_attention": da.decode_attention}
+    for fn in wrappers.values():
+        fn.launches = 0
+    report = serve.serve(arch, device=dev, **kw)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    n = kw["num_requests"]
+    check(report["finished"] == n, f"served {report['finished']} of {n}")
+    check(report["generated_tokens"] == n * kw["new_tokens"],
+          "tokens missing")
+    types = [t for ts, k in transformer.segments(cfg) for t in ts
+             for _ in range(k)]
+    scan = "rglru_scan" if arch == RG else "rwkv6_scan"
+    blocks = types.count("rec") + types.count("rwkv")
+    want = {name: 0 for name in wrappers}
+    want[scan] = (n + report["steps"]) * blocks
+    want["flash_attention"] = n * types.count("lattn")
+    want["decode_attention"] = report["steps"] * types.count("lattn")
+    check(launches == want, f"{arch} serving launched {launches}, not "
+                            f"{want}")
+    emit("recurrent_serve", arch=arch, layers=cfg.num_layers,
+         dtype=cfg.dtype, **{k: v for k, v in kw.items()
+                             if k != "prompt_len"},
+         prompt_len=list(kw["prompt_len"]), launches=launches, **report)
+    return launches
+
+
+def _scan_bound(flops: int, nbytes: int) -> tuple[float, str]:
+    """Least time in ms (f32 operations on the CUDA cores, or bytes at the
+    HBM rate, whichever is longer) and which bounds it."""
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
+    """Kernel and plain times of both scans at the full-width prefill
+    (T 1,024, bf16 inputs) and decode (B 8, T 1, from a state) shapes,
+    and of both attention kernels at head dim 256 (flash: T 1,024, 16
+    heads over 1, window 2,048; decode: B 8 over 2,048-slot rings with
+    ragged kv_len, cycling through 8 layers' rings, 134 MB, beyond the
+    50 MB L2) with SDPA's time beside them.  No single PyTorch call
+    computes a scan: their library time is None."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf16 = torch.bfloat16
+    out = {}
+    for name, mod, shapes in (
+            ("rglru_scan", rgs, {"prefill": (1, 1024, 4096, True),
+                                 "decode": (8, 1, 4096, True)}),
+            ("rwkv6_scan", rws, {"prefill": (1, 1024, 64, 64, True),
+                                 "decode": (8, 1, 64, 64, True)})):
+        for where, case in shapes.items():
+            args = _scan_inputs(name, case, bf16, gen, dev)
+            errs[name] = max(errs[name], _scan_err(name, args,
+                                                   f"timing {where}"))
+            fn, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+            ms = cuda_ms(lambda: fn(*args), 50)
+            plain_ms = cuda_ms(lambda: plain(*args), 2)
+            if name == "rglru_scan":
+                b, t, w, _ = case
+                flops = RGLRU_OPS_PER_ELEM * b * t * w
+                nbytes = 2 * b * t * w + 5 * 4 * w + 4 * b * w + \
+                    4 * b * t * w + 4 * b * w
+                shape = f"B={b} T={t} W={w}, u bf16, h0 given"
+            else:
+                b, t, h, n, _ = case
+                flops = 4 * n * n * b * t * h
+                nbytes = (3 * 2 + 4 + 4) * b * t * h * n + 4 * h * n + \
+                    2 * 4 * b * h * n * n
+                shape = f"B={b} T={t} H={h} N={n}, r/k/v bf16, S0 given"
+            bound, by = _scan_bound(flops, nbytes)
+            out[f"{name} {where}"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                bound_by=by, flops=flops, bytes=nbytes, shape=shape)
+            emit(f"time_{name}_{where}", **out[f"{name} {where}"])
+
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
+    t, h, kh, d, window = 1024, 16, 1, 256, 2048
+    q, k, v = r(1, t, h, d), r(1, t, kh, d), r(1, t, kh, d)
+    attn_errs["flash_attention"] = max(attn_errs["flash_attention"], _attn_err(
+        fa.flash_attention(q, k, v, window=window),
+        fa.flash_attention_plain(q, k, v, window=window), bf16,
+        "flash D=256 timing"))
+    flops = 4 * h * d * (t * (t + 1) // 2)
+    nbytes = 2 * t * (2 * h + 2 * kh) * d
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out["flash_attention d256"] = dict(
+        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), 20),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window), 3),
+        library_ms=cuda_ms(lambda: _sdpa(q, k, v, is_causal=True), 20),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        shape=f"prefill B=1 T={t} H={h} KH={kh} D={d} bf16 causal, "
+              f"window {window}", flops=flops, bytes=nbytes)
+    emit("time_flash_attention_d256", **out["flash_attention d256"])
+
+    b, s, layers = 8, 2048, 8
+    kv_len = torch.as_tensor(np.random.default_rng(2).integers(
+        100, s + 1, b).astype(np.int32), device=dev)
+    q = r(b, h, d)
+    kc, vc = r(layers, b, s, kh, d), r(layers, b, s, kh, d)
+    attn_errs["decode_attention"] = max(
+        attn_errs["decode_attention"],
+        _attn_err(da.decode_attention(q, kc[0], vc[0], kv_len),
+                  da.decode_attention_plain(q, kc[0], vc[0], kv_len), bf16,
+                  "decode D=256 timing"))
+    mask = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])[
+        :, None, None, :]
+    state = {"i": 0}
+
+    def cycled(fn):
+        def call():
+            i = state["i"] = (state["i"] + 1) % layers
+            fn(kc[i], vc[i])
+        return call
+
+    n_len = int(kv_len.sum())
+    nbytes = 2 * (2 * n_len * kh * d + 2 * b * h * d) + 4 * b
+    flops = 4 * n_len * h * d
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out["decode_attention d256"] = dict(
+        ms=cuda_ms(cycled(lambda kk, vv: da.decode_attention(
+            q, kk, vv, kv_len)), 100),
+        plain_ms=cuda_ms(cycled(lambda kk, vv: da.decode_attention_plain(
+            q, kk, vv, kv_len)), 10),
+        library_ms=cuda_ms(cycled(lambda kk, vv: _sdpa(
+            q[:, None], kk, vv, attn_mask=mask)), 100),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        shape=f"decode B={b} S={s} H={h} KH={kh} D={d} bf16, "
+              f"kv_len {kv_len.tolist()}", flops=flops, bytes=nbytes)
+    emit("time_decode_attention_d256", **out["decode_attention d256"])
+    return out
+
+
+def phase_recurrent(dev, attn_errs: dict) -> tuple[list, dict]:
+    """The recurrent slice, model by model (each served alone and freed
+    before the next).  Returns its two entries of the `kernels` line and,
+    for each attention kernel, its head-dim-256 times and its launches on
+    recurrentgemma's serving path."""
+    from repro_torch.models import transformer
+    errs = {"rglru_scan": 0.0, "rwkv6_scan": 0.0}
+    phase_scans_vs_plain(dev, errs)
+    phase_attention256_vs_plain(dev, attn_errs)
+    for arch in (RG, RWKV):
+        phase_recurrent_jax_anchor(dev, arch)
+        torch.cuda.empty_cache()
+    times = phase_time_recurrent(dev, errs, attn_errs)
+    torch.cuda.empty_cache()
+    launches = {}
+    for arch in (RG, RWKV):
+        cfg = _recurrent(arch)
+        if DEEP_GATED_DTYPE[arch] != cfg.dtype:
+            deep = _recurrent(arch, dtype=DEEP_GATED_DTYPE[arch])
+            params = transformer.init_params(
+                deep, torch.Generator(device=dev).manual_seed(0), dev)
+            phase_recurrent_consistency(dev, deep, params)
+            del params
+            torch.cuda.empty_cache()
+        params = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        phase_recurrent_consistency(dev, cfg, params)
+        profile_serving(dev, cfg, params,
+                        f"serve_profile_{arch.split('-')[0]}")
+        del params
+        torch.cuda.empty_cache()
+        launches[arch] = phase_recurrent_serve(dev, arch)   # counted
+        torch.cuda.empty_cache()
+    entries = []
+    for name, arch in (("rglru_scan", RG), ("rwkv6_scan", RWKV)):
+        prefill, decode = times[f"{name} prefill"], times[f"{name} decode"]
+        entries.append({
+            "name": name, "route": "cuda", "source": REC_SOURCES[name],
+            "replaces": REC_REPLACES[name],
+            "launches": launches[arch][name], "max_abs_err": errs[name],
+            "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
+            "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
+            "library_ms": None, "match": True, "shape": prefill["shape"],
+            "decode": {k: decode[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "shape")}})
+    attn = {name: dict(times[f"{name} d256"],
+                       launches_recurrentgemma=launches[RG][name])
+            for name in ("flash_attention", "decode_attention")}
+    return entries, attn
+
+
 def main() -> None:
     load_port()
     card = phase_device()
@@ -1608,16 +2229,6 @@ def main() -> None:
     torch.cuda.empty_cache()
     attn_times = phase_time_attention(dev, attn_errs)
     phase_serve_profile(dev)
-    kernels += [{
-        "name": name, "route": "cuda", "source": ATTN_SOURCES[name],
-        "replaces": ATTN_REPLACES[name], "launches": attn_launches[name],
-        "max_abs_err": attn_errs[name], "ms": attn_times[name]["ms"],
-        "plain_ms": attn_times[name]["plain_ms"],
-        "bound_ms": attn_times[name]["bound_ms"],
-        "bound_by": attn_times[name]["bound_by"],
-        "library_ms": attn_times[name]["library_ms"],
-        "match": True, "shape": attn_times[name]["shape"]}
-        for name in ("flash_attention", "decode_attention")]
     torch.cuda.empty_cache()          # granite's weights are gone
 
     # the MoE slice
@@ -1648,6 +2259,22 @@ def main() -> None:
         "library_ms": moe_times[name]["library_ms"],
         "match": True, "shape": moe_times[name]["shape"]}
         for name in ("moe_gmm", "moe_gmm_skip")]
+    torch.cuda.empty_cache()          # arctic's weights are gone
+
+    # the recurrent slice
+    rec_kernels, attn256 = phase_recurrent(dev, attn_errs)
+    kernels[2:2] = [{
+        "name": name, "route": "cuda", "source": ATTN_SOURCES[name],
+        "replaces": ATTN_REPLACES[name], "launches": attn_launches[name],
+        "max_abs_err": attn_errs[name], "ms": attn_times[name]["ms"],
+        "plain_ms": attn_times[name]["plain_ms"],
+        "bound_ms": attn_times[name]["bound_ms"],
+        "bound_by": attn_times[name]["bound_by"],
+        "library_ms": attn_times[name]["library_ms"],
+        "match": True, "shape": attn_times[name]["shape"],
+        "d256": attn256[name]}
+        for name in ("flash_attention", "decode_attention")]
+    kernels += rec_kernels
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -179,6 +179,7 @@ int dispatch(const void* q, const void* k, const void* v, const int* kv_len,
               H, KH, S, scale};
   if (D == 64) return launch<T, 64>(p, B, stream);
   if (D == 128) return launch<T, 128>(p, B, stream);
+  if (D == 256) return launch<T, 256>(p, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -192,8 +193,8 @@ extern "C" size_t decode_attention_smem_bytes(int G, int D) {
 // o (B, H, D) contiguous <- attention of q over the first kv_len[b]
 // positions of k/v on `stream`.  `strides` holds q's (batch, head) and
 // k's and v's (batch, position, head) element strides, in that order; the
-// last dimension of each is contiguous.  dtype: 0 f32, 1 bf16; D: 64 or
-// 128.  Returns the CUDA error of the launch (0 on success); never
+// last dimension of each is contiguous.  dtype: 0 f32, 1 bf16; D: 64,
+// 128 or 256.  Returns the CUDA error of the launch (0 on success); never
 // synchronises.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const int* kv_len,

@@ -16,7 +16,10 @@
 // reading the strided (B, T, heads, D) tensors in place with 16-byte
 // loads.  A thread scores its row against 16 of the tile's keys, the
 // row's max and sum are reduced over the four threads with shuffles, and
-// each thread keeps D/4 of the row's output columns in registers.  Key
+// each thread keeps D/4 of the row's output columns in registers (64 at
+// D = 256, RecurrentGemma's head dim).  The three tiles take (64 + 2 x 64)
+// (D + 4) floats of shared memory: 199,680 bytes at D = 256, of the
+// 232,448 a Hopper block may use, so one CTA an SM at that width.  Key
 // tiles wholly above the causal diagonal or wholly older than the window
 // are never loaded; the ragged tail of q and k (T need not be a multiple
 // of 64) is masked, not asserted away as the Pallas kernel does (:89).
@@ -202,6 +205,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
               Tq, Tk, H, KH, causal, window, scale};
   if (D == 64) return launch<T, 64>(p, B, stream);
   if (D == 128) return launch<T, 128>(p, B, stream);
+  if (D == 256) return launch<T, 256>(p, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -210,7 +214,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // o (B, Tq, H, D) contiguous <- attention of q over k/v on `stream`.
 // `strides` holds the (batch, position, head) element strides of q, k, v
 // in that order; the last dimension of each is contiguous.  dtype: 0 f32,
-// 1 bf16; D: 64 or 128.  Returns the CUDA error of the launch (0 on
+// 1 bf16; D: 64, 128 or 256.  Returns the CUDA error of the launch (0 on
 // success); never synchronises.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,

@@ -13,8 +13,8 @@ of an all-masked row is uniform).  The model path always has kv_len >= 1.
 
 * `decode_attention_plain`: the whole cache at once, masked; any device.
 * the CUDA kernel `csrc/decode_attention.cu` for `sm_90a` (head dim
-  64/128, bf16/f32): one CTA per (kv head, batch row), reading cache rows
-  up to kv_len only.  Built with `nvcc` at first use, bound with ctypes.
+  64/128/256, bf16/f32): one CTA per (kv head, batch row), reading cache
+  rows up to kv_len only.  Built with `nvcc` at first use, bound with ctypes.
 
 `decode_attention` owns the choice: CUDA tensors launch the kernel (and
 count it in `decode_attention.launches`) or raise, CPU tensors run the
@@ -34,7 +34,7 @@ __all__ = ["decode_attention", "decode_attention_plain", "build"]
 NEG_INF = -1e30
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "decode_attention.cu")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dynamic shared memory a Hopper block may use
 _SMEM_LIMIT = 232_448

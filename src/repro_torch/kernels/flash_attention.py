@@ -10,10 +10,11 @@ JAX models run) and the Pallas kernel
   `q_offset`, `kv_len`, `kv_start` and `window` masks; q is scaled in its
   own dtype, then cast to f32, as there.  It runs on any device.
 * the CUDA kernel `csrc/flash_attention.cu` for `sm_90a` (causal or not,
-  sliding window, GQA, any sequence length, head dim 64/128, bf16/f32)
-  scales q in f32 as the Pallas kernel does; with bf16 inputs and head
-  dim 128 that rounds differently from the plain version (dim 64's scale
-  is a power of two).  Built with `nvcc` at first use, bound with ctypes.
+  sliding window, GQA, any sequence length, head dim 64/128/256,
+  bf16/f32) scales q in f32 as the Pallas kernel does; with bf16 inputs
+  and head dim 128 that rounds differently from the plain version (the
+  scales of dims 64 and 256 are powers of two).  Built with `nvcc` at
+  first use, bound with ctypes.
 
 `flash_attention` owns the choice: CUDA tensors launch the kernel (and
 count it in `flash_attention.launches`) or raise, CPU tensors run the
@@ -33,7 +34,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "build", "NEG_INF"]
 NEG_INF = -1e30
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "flash_attention.cu")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -159,19 +160,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (see `flash_attention_plain` for the arguments).
 
     CUDA tensors launch the flash kernel, which covers the prefill form
-    (`q_offset` 0, no `kv_len`/`kv_start`); the other form is only the
-    windowed two-chunk attention of the recurrentgemma slice and raises
-    `NotImplementedError` on CUDA.  CPU tensors, or `use_kernel="plain"`,
-    run `flash_attention_plain`; `use_kernel="kernel"` raises on CPU."""
+    (`q_offset` 0, no `kv_len`/`kv_start`), as the Pallas kernel does;
+    the other form raises `NotImplementedError` on CUDA.  CPU tensors, or
+    `use_kernel="plain"`, run `flash_attention_plain`;
+    `use_kernel="kernel"` raises on CPU."""
     if not common.resolve(use_kernel, q.device) or q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block=block, q_offset=q_offset,
                                      kv_len=kv_len, kv_start=kv_start)
     if q_offset or kv_len is not None or kv_start is not None:
         raise NotImplementedError(
-            "the flash kernel takes q_offset=0 and no kv_len/kv_start; the "
-            "windowed two-chunk attention that needs them comes with the "
-            "recurrentgemma slice")
+            "the flash kernel takes q_offset=0 and no kv_len/kv_start, as "
+            "the Pallas kernel does: attend over the whole sequence with "
+            "causal=True and a window instead")
     out = _launch(q, k, v, causal=causal, window=window)
     flash_attention.launches += 1
     return out

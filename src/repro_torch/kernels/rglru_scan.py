@@ -1,0 +1,134 @@
+"""RG-LRU recurrence: Hopper kernel and its plain version.
+
+PyTorch port of the JAX package's Pallas kernel
+`repro.kernels.rglru_scan.rglru_scan` and of the scans the JAX model runs
+in its place (`repro.models.rglru.rglru_scan`, a chunked associative scan,
+and `rglru_step` at decode): for the conv output u (B, T, W) and the gate
+parameters w_r, b_r, w_i, b_i, lam (W,) f32,
+
+    r = sigmoid(u w_r + b_r),  i = sigmoid(u w_i + b_i)
+    a = exp(-8 softplus(lam) r),  b = sqrt(max(1 - a^2, 1e-12)) (i u)
+    h_t = a_t h_{t-1} + b_t
+
+all in f32, from h0 (B, W) f32 (zero when None).  Both versions return
+(h (B, T, W) f32, h_last (B, W) f32): the Pallas kernel starts from zero
+and returns h only, the model needs both ends of the state.
+
+* `rglru_scan_plain`: the gates at once, then a sequential loop over t;
+  any device.
+* the CUDA kernel `csrc/rglru_scan.cu` for `sm_90a` (u bf16 or f32, read
+  in its own type): one thread per (batch row, channel) walking t.  Built
+  with `nvcc` at first use, bound with ctypes.
+
+`rglru_scan` owns the choice: CUDA tensors launch the kernel (and count it
+in `rglru_scan.launches`) or raise, CPU tensors run the plain version;
+`use_kernel="plain"` forces the plain version anywhere.  The Pallas
+kernel's `chunk`/`block_w` are TPU tiling knobs with no counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import common
+
+__all__ = ["rglru_scan", "rglru_scan_plain", "build", "C_RGLRU"]
+
+C_RGLRU = 8.0
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "rglru_scan.cu")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _gates(u, w_r, b_r, w_i, b_i, lam):
+    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, in f32:
+    `repro.models.rglru._gates`."""
+    uf = u.float()
+    r = torch.sigmoid(uf * w_r + b_r)
+    i = torch.sigmoid(uf * w_i + b_i)
+    log_a = -C_RGLRU * F.softplus(lam.float()) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * \
+        (i * uf)
+    return a, b
+
+
+def rglru_scan_plain(u, w_r, b_r, w_i, b_i, lam, h0=None):
+    """u: (B, T, W); gate params (W,) f32; h0 (B, W) f32 or None.
+    Returns (h (B, T, W) f32, h_last (B, W) f32)."""
+    a, b = _gates(u, w_r, b_r, w_i, b_i, lam)
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0.float()
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out, h
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+def build(verbose: bool = False) -> str:
+    """Compile `csrc/rglru_scan.cu` into `kernels/build/` (once per source
+    content) and return the shared library's path."""
+    return common.build(SOURCE, verbose)
+
+
+def _declare(lib) -> None:
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.rglru_scan_launch.argtypes = [vp, ci, ci, ci, ci, cl, cl,
+                                      ctypes.POINTER(vp), vp, vp, vp, vp]
+    lib.rglru_scan_launch.restype = ci
+
+
+def _launch(u, params, h0):
+    """Check the operands, allocate h and h_last and launch the kernel on
+    the current stream."""
+    if u.dtype not in _DTYPES:
+        raise ValueError(f"rglru kernel takes bf16 or f32 u, not {u.dtype}")
+    if u.dim() != 3 or u.stride(-1) != 1:
+        raise ValueError(f"u has shape {tuple(u.shape)}, strides "
+                         f"{u.stride()}: expected (B, T, W) with a "
+                         f"contiguous last dimension")
+    b, t, w = u.shape
+    for name, p in zip(("w_r", "b_r", "w_i", "b_i", "lam"), params):
+        if (p.device != u.device or p.dtype != torch.float32
+                or tuple(p.shape) != (w,) or not p.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({w},) f32 "
+                             f"tensor on {u.device}")
+    if h0 is not None and (h0.device != u.device or h0.dtype != torch.float32
+                           or tuple(h0.shape) != (b, w)
+                           or not h0.is_contiguous()):
+        raise ValueError(f"h0 must be a contiguous ({b}, {w}) f32 tensor on "
+                         f"{u.device}")
+    lib = common.library(SOURCE, _declare)
+    h = torch.empty((b, t, w), dtype=torch.float32, device=u.device)
+    h_last = torch.empty((b, w), dtype=torch.float32, device=u.device)
+    ptrs = (ctypes.c_void_p * 5)(*(p.data_ptr() for p in params))
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = lib.rglru_scan_launch(
+        u.data_ptr(), _DTYPES[u.dtype], b, t, w, u.stride(0), u.stride(1),
+        ptrs, h0.data_ptr() if h0 is not None else None, h.data_ptr(),
+        h_last.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
+    return h, h_last
+
+
+def rglru_scan(u, w_r, b_r, w_i, b_i, lam, h0=None, *, use_kernel=None):
+    """The RG-LRU scan of u (B, T, W) from h0 (see the module docstring).
+    Returns (h (B, T, W) f32, h_last (B, W) f32).  CUDA tensors launch the
+    kernel; CPU tensors, or `use_kernel="plain"`, run `rglru_scan_plain`;
+    `use_kernel="kernel"` raises on CPU."""
+    if not common.resolve(use_kernel, u.device) or u.device.type != "cuda":
+        return rglru_scan_plain(u, w_r, b_r, w_i, b_i, lam, h0)
+    out = _launch(u, (w_r, b_r, w_i, b_i, lam), h0)
+    rglru_scan.launches += 1
+    return out
+
+
+rglru_scan.launches = 0

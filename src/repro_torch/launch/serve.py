@@ -3,12 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \
         --smoke --device cpu --requests 12 --batch 4 --max-len 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --smoke --device cpu   # or rwkv6-7b
 
 PyTorch port of `repro.launch.serve`: random weights from a seeded
 `torch.Generator`, requests of random prompts rolled through
 `serve.engine.model_batcher`, one line of report.  On the card, prefill
 runs the flash kernel and every decode step the decode kernel; MoE archs
-run `moe_gmm` at prefill and `moe_gmm_skip` at each decode step.
+run `moe_gmm` at prefill and `moe_gmm_skip` at each decode step;
+recurrentgemma runs `rglru_scan` in its recurrent blocks and the
+attention kernels over its 2,048-token window (a prompt longer than the
+window must be a multiple of it, as in the JAX model), rwkv6
+`rwkv6_scan` in every block, at prefill and at each decode step.
 `--prompt-len LO[:HI]` draws each prompt's length from LO..HI (the JAX
 launcher's prompts are 4 tokens, the default); with one length the
 prompts are the JAX launcher's draws.  MoE archs then run the

@@ -1,3 +1,4 @@
-"""The model zoo's global-attention and MoE decoders in PyTorch
-(`layers`, `kvcache`, `moe`, `transformer`, and `convert` to carry
-weights across from the JAX package)."""
+"""The model zoo's decoders in PyTorch: global-attention, MoE,
+RecurrentGemma (RG-LRU + local attention) and RWKV6 blocks (`layers`,
+`kvcache`, `moe`, `rglru`, `rwkv6`, `transformer`, and `convert` to
+carry weights across from the JAX package)."""

@@ -1,5 +1,7 @@
-"""Decoder-LM assembly: PyTorch port of `repro.models.transformer`, the
-global-attention (`"attn"`) and MoE (`"moe"`) blocks.
+"""Decoder-LM assembly: PyTorch port of `repro.models.transformer` for
+every block type of the zoo: global attention (`"attn"`), MoE (`"moe"`),
+RecurrentGemma's RG-LRU (`"rec"`) and local attention (`"lattn"`), and
+RWKV6 (`"rwkv"`).
 
 An architecture compiles to *segments*: a tuple of block types repeated N
 times, with parameters stacked over the repeat axis.  The JAX package runs
@@ -12,25 +14,28 @@ that indexes views of the stacked tensors.
     rwkv6:            [(("rwkv",), L)]
     recurrentgemma:   [(("rec","rec","lattn"), 12), (("rec","rec"), 1)]
 
-This port runs the attention-only archs and the MoE archs (arctic-480b,
-llama4-maverick); the other block types raise `NotImplementedError`
-naming the slice that brings them.
-
 Three execution modes share the block code:
     train   — full sequence, no cache;
-    prefill — full sequence, emits per-layer cache (stacked over layers);
-    decode  — one token, writes its K/V into the given cache in place and
-              returns that cache.
+    prefill — full sequence, emits per-layer cache (stacked over layers):
+              K/V for "attn"/"moe", the last `window` K/V at their ring
+              slots (or padded to `window`) for "lattn", the recurrent
+              state for "rec" ({h, conv}) and "rwkv" ({s, shift_tm,
+              shift_cm});
+    decode  — one token, writes its K/V or the block's new state into the
+              given cache in place and returns that cache.
 Each MoE block's per-layer `expert_load` comes back in `aux`, stacked over
 the segment's layers as (n, E) int32, in the JAX package's layout.
 
 `use_kernel` (None/"auto", "kernel", "plain"; carried in `Ctx`) reaches
 the kernels, whose wrappers own the device choice: the flash kernel for
-prefill and the decode kernel for each decode step, the grouped-FFN
-kernel `moe_gmm` at prefill and `moe_gmm_skip` at a decode step, on CUDA
-tensors; their plain versions on CPU tensors.  The JAX package's sharding
-context (`shd`, `_expand_kv` for head-TP) has no counterpart on one card:
-`shd` must be None.
+prefill (global, and windowed for "lattn": one call over the whole
+prompt where the JAX model splits it into window-sized chunk pairs) and
+the decode kernel for each decode step (over the window ring for
+"lattn"), the grouped-FFN kernel `moe_gmm` at prefill and `moe_gmm_skip`
+at a decode step, `rglru_scan` in every "rec" block and `rwkv6_scan` in
+every "rwkv" block at every T, on CUDA tensors; their plain versions on
+CPU tensors.  The JAX package's sharding context (`shd`, `_expand_kv` for
+head-TP) has no counterpart on one card: `shd` must be None.
 """
 from __future__ import annotations
 
@@ -40,24 +45,10 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import kvcache, layers, moe
+from repro_torch.models import kvcache, layers, moe, rglru, rwkv6
 
 __all__ = ["segments", "init_params", "init_cache", "Ctx", "apply_block",
            "run_segments", "forward", "prefill", "decode_step", "DecoderLM"]
-
-# the slice of the port that brings each block type this one lacks
-_LATER = {"lattn": "the recurrentgemma slice",
-          "rec": "the recurrentgemma slice",
-          "rwkv": "the rwkv6 slice"}
-
-
-def _later(btype: str):
-    if btype in _LATER:
-        return NotImplementedError(
-            f"block type {btype!r} is not ported yet: it comes with "
-            f"{_LATER[btype]}")
-    return ValueError(btype)
-
 
 def _no_shd(shd) -> None:
     if shd is not None:
@@ -119,16 +110,23 @@ def _tree_stack(trees):
 def _init_block(btype: str, gen: torch.Generator, cfg, device):
     """One layer of a block; a moe block's router and experts are drawn
     by `init_params`, stacked."""
-    if btype not in ("attn", "moe"):
-        raise _later(btype)
     d = cfg.d_model
     p = {"ln1": layers.init_rmsnorm(d, device),
-         "ln2": layers.init_rmsnorm(d, device),
-         "attn": layers.init_attention(gen, cfg, device)}
-    if btype == "attn":
+         "ln2": layers.init_rmsnorm(d, device)}
+    if btype in ("attn", "lattn", "moe"):
+        p["attn"] = layers.init_attention(gen, cfg, device)
+        if btype != "moe":
+            p["mlp"] = layers.init_mlp(gen, cfg, device=device)
+        elif cfg.dense_ff_residual:
+            p["dense"] = layers.init_mlp(gen, cfg, cfg.dense_ff_residual,
+                                         device)
+    elif btype == "rwkv":
+        p.update(rwkv6.init_rwkv_block(gen, cfg, device))
+    elif btype == "rec":
+        p["rec"] = rglru.init_rec_block(gen, cfg, device)
         p["mlp"] = layers.init_mlp(gen, cfg, device=device)
-    elif cfg.dense_ff_residual:
-        p["dense"] = layers.init_mlp(gen, cfg, cfg.dense_ff_residual, device)
+    else:
+        raise ValueError(btype)
     return p
 
 
@@ -159,17 +157,30 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     return params
 
 
+def _init_block_cache(btype, cfg, batch, length, device):
+    if btype in ("attn", "moe"):
+        return kvcache.init_full_cache(cfg, batch, length, device)
+    if btype == "lattn":
+        return kvcache.init_window_cache(cfg, batch, device)
+    if btype == "rwkv":
+        return rwkv6.init_rwkv_state(cfg, batch, device)
+    if btype == "rec":
+        return rglru.init_rec_state(cfg, batch, device)
+    raise ValueError(btype)
+
+
 def init_cache(cfg, batch: int, length: int, device="cuda"):
     """Decode cache for a max context of `length` tokens: per segment, per
-    block type, {"k", "v"} of shape (n, batch, length, KH, Dh)."""
+    block type, its leaves stacked over the segment's n layers: {"k",
+    "v"} of (n, batch, length, KH, Dh) for "attn"/"moe", of (n, batch,
+    window, KH, Dh) for "lattn"; the f32 states {"h", "conv"} of "rec" and
+    {"s", "shift_tm", "shift_cm"} of "rwkv"."""
     dev = resolve_device(device)
     out = []
     for types, n in segments(cfg):
         seg = []
         for t in types:
-            if t not in ("attn", "moe"):
-                raise _later(t)
-            one = kvcache.init_full_cache(cfg, batch, length, dev)
+            one = _init_block_cache(t, cfg, batch, length, dev)
             seg.append({k: v.expand(n, *v.shape).contiguous()
                         for k, v in one.items()})
         out.append(seg)
@@ -188,12 +199,41 @@ class Ctx(NamedTuple):
     router_bias: Any = None      # (E,) slot-hit routing bias (serving)
 
 
-def _prefill_cache(cfg, k, v):
-    """Arrange prefill K/V as a decode-ready cache (global attention)."""
-    return {"k": k, "v": v}
+def _prefill_cache(cfg, k, v, window):
+    """Arrange prefill K/V as a decode-ready cache: the whole prompt for
+    global attention; for local attention the last `window` tokens at
+    their circular slots (abs_pos % window), or the prompt padded to
+    `window`."""
+    if not window:
+        return {"k": k, "v": v}
+    t, w = k.shape[1], cfg.window
+    if t >= w:
+        slots = torch.arange(t - w, t, device=k.device) % w
+        order = torch.argsort(slots)
+        return {"k": k[:, t - w:][:, order], "v": v[:, t - w:][:, order]}
+    pad = (0, 0, 0, 0, 0, w - t)
+    return {"k": torch.nn.functional.pad(k, pad),
+            "v": torch.nn.functional.pad(v, pad)}
 
 
-def _attention(p, x, cache, ctx):
+def _local_attention(q, k, v, window, use_kernel=None):
+    """Exact sliding-window attention: one causal, windowed call over the
+    whole sequence.  The JAX model cuts a prompt longer than the window
+    into window-sized chunks, each attending over itself and its
+    predecessor (the two-chunk trick, which bounds a TPU kernel's work a
+    chunk); that is the same function, and the flash kernel already skips
+    key tiles older than the window.  The JAX model's precondition is
+    kept: T <= window or T a multiple of it."""
+    t = q.shape[1]
+    if t > window and t % window:
+        raise ValueError(
+            f"local attention over {t} tokens needs T <= window ({window}) "
+            f"or T a multiple of the window, as in the JAX model")
+    return layers.flash_attention(q, k, v, causal=True, window=window,
+                                  use_kernel=use_kernel)
+
+
+def _attention(p, x, cache, ctx, window: int):
     cfg = ctx.cfg
     b, t, _ = x.shape
     h = layers.rmsnorm(x, p["ln1"])
@@ -205,34 +245,77 @@ def _attention(p, x, cache, ctx):
         rope_pos = pos
     q, k, v = layers.qkv(p["attn"], h, cfg, rope_pos)
     if ctx.mode == "decode":
-        o, new_cache = kvcache.decode_attention(
-            q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
+        if window:
+            o, new_cache = kvcache.window_decode_attention(
+                q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
+        else:
+            o, new_cache = kvcache.decode_attention(
+                q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
     else:
-        o = layers.flash_attention(q, k, v, causal=True,
-                                   use_kernel=ctx.use_kernel)
+        if window:
+            o = _local_attention(q, k, v, window, ctx.use_kernel)
+        else:
+            o = layers.flash_attention(q, k, v, causal=True,
+                                       use_kernel=ctx.use_kernel)
         new_cache = None
         if ctx.mode == "prefill":
-            new_cache = _prefill_cache(cfg, k, v)
+            new_cache = _prefill_cache(cfg, k, v, window)
     o = o.reshape(b, t, -1)
     return o @ p["attn"]["wo"], new_cache
 
 
+def _carry_state(cache, new, ctx):
+    """A recurrent block's new state: written into the given cache in
+    place at a decode step (which returns that cache), returned as is
+    otherwise."""
+    if ctx.mode != "decode":
+        return new
+    for name, value in new.items():
+        cache[name].copy_(value)
+    return cache
+
+
 def apply_block(btype, p, x, cache, ctx):
-    if btype not in ("attn", "moe"):
-        raise _later(btype)
     cfg = ctx.cfg
     aux = {}
-    o, new_cache = _attention(p, x, cache, ctx)
-    x = x + o
-    h = layers.rmsnorm(x, p["ln2"])
-    if btype == "attn":
-        return x + layers.apply_mlp(p["mlp"], h, cfg), new_cache, aux
-    mo, aux = moe.moe_apply(p["moe"], h, cfg, router_bias=ctx.router_bias,
-                            skip_empty=ctx.mode == "decode",
-                            use_kernel=ctx.use_kernel)
-    if cfg.dense_ff_residual:
-        mo = mo + layers.apply_mlp(p["dense"], h, cfg)
-    return x + mo, new_cache, aux
+    if btype in ("attn", "lattn", "moe"):
+        window = cfg.window if btype == "lattn" else 0
+        o, new_cache = _attention(p, x, cache, ctx, window)
+        x = x + o
+        h = layers.rmsnorm(x, p["ln2"])
+        if btype != "moe":
+            return x + layers.apply_mlp(p["mlp"], h, cfg), new_cache, aux
+        mo, aux = moe.moe_apply(p["moe"], h, cfg,
+                                router_bias=ctx.router_bias,
+                                skip_empty=ctx.mode == "decode",
+                                use_kernel=ctx.use_kernel)
+        if cfg.dense_ff_residual:
+            mo = mo + layers.apply_mlp(p["dense"], h, cfg)
+        return x + mo, new_cache, aux
+    if btype == "rwkv":
+        st = cache if cache is not None else rwkv6.init_rwkv_state(
+            cfg, x.shape[0], x.device)
+        h = layers.rmsnorm(x, p["ln1"])
+        o, x_last_tm, s_new = rwkv6.time_mix(
+            p, h, st["shift_tm"].to(x.dtype), st["s"], cfg, ctx.use_kernel)
+        x = x + o
+        h2 = layers.rmsnorm(x, p["ln2"])
+        o2, x_last_cm = rwkv6.channel_mix(p, h2,
+                                          st["shift_cm"].to(x.dtype))
+        x = x + o2
+        new = {"s": s_new, "shift_tm": x_last_tm.float(),
+               "shift_cm": x_last_cm.float()}
+        return x, _carry_state(cache, new, ctx), aux
+    if btype == "rec":
+        st = cache if cache is not None else rglru.init_rec_state(
+            cfg, x.shape[0], x.device)
+        h = layers.rmsnorm(x, p["ln1"])
+        o, new = rglru.rec_block(p["rec"], h, st, cfg, ctx.use_kernel)
+        x = x + o
+        h2 = layers.rmsnorm(x, p["ln2"])
+        x = x + layers.apply_mlp(p["mlp"], h2, cfg)
+        return x, _carry_state(cache, new, ctx), aux
+    raise ValueError(btype)
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,12 @@
 
 `model_batcher` wires a `ContinuousBatcher` to a model: a queued request
 claims a free row of the fixed-width decode batch, its prompt is
-prefilled alone (the flash kernel, and for MoE archs `moe_gmm`, on the
-card) and its (1, T) cache is copied into the row of the shared cache;
+prefilled alone (on the card the flash kernel, and `moe_gmm`,
+`rglru_scan` or `rwkv6_scan` as the arch has them) and its (1, T) cache
+is copied into the row of the shared cache: the K/V prefix of a global
+attention cache, the whole row of a window cache or a recurrent state;
 every step then decodes one token for all rows (the decode kernel, and
-`moe_gmm_skip`, on the card).
+`moe_gmm_skip` or the scans, on the card).
 
 `SlotServeEngine` is the paper's §VI-C at the serving level (DESIGN.md
 §2): tenants are processes; each tenant's routing distribution is its
@@ -62,9 +64,16 @@ def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
             use_kernel=use_kernel)
         for seg, row_seg in zip(cache, row_cache):
             for dst, src in zip(seg, row_seg):
-                for name in dst:
-                    # dst: (n, B, S, ...) shared cache; src: (n, 1, t0, ...)
-                    dst[name][:, row, :t0] = src[name][:, 0]
+                for name, d in dst.items():
+                    # d: (n, B, ...) shared cache; s: (n, 1, ...) the row's:
+                    # a K/V prefix where s has a t0-long time axis, else
+                    # (window caches, recurrent states) the whole row
+                    s = src[name]
+                    if s.dim() >= 3 and s.shape[2] == t0 and \
+                            d.shape[2] >= t0:
+                        d[:, row, :t0] = s[:, 0]
+                    else:
+                        d[:, row] = s[:, 0]
 
     def decode(tokens, positions):
         logits, _, _ = transformer.decode_step(

@@ -1,30 +1,40 @@
 """Print the JAX package's reference numbers for `chip_smoke.py`'s
-`model_jax_anchor` and `moe_jax_anchor` phases (not a test module: pytest
-does not collect it).
+`model_jax_anchor`, `moe_jax_anchor` and `recurrent_jax_anchor` phases
+(not a test module: pytest does not collect it).
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/jax_anchor.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/jax_anchor.py [NAME ...]
 
-Two JSON objects, one a line:
+One JSON object a line, for each NAME given (all four by default, in
+this order):
 
-1. granite-3-2b at full width (d 2048, 32 heads over 8 KV heads, head dim
-   64, ff 8192, vocab 49155), cut to 2 layers, in float32;
-2. arctic-480b at full width (d 7168, 56 heads over 8 KV heads, head dim
-   128, expert ff 4864, dense residual ff 4864, vocab 32000), cut to 1
-   layer and 8 experts, top-2, capacity factor 1.25, in float32 (about
-   6.1 GB of weights; the prefill's 97 tokens x 2 over 8 experts at a
-   capacity of 32 drop assignments).
+1. `granite`: granite-3-2b at full width (d 2048, 32 heads over 8 KV
+   heads, head dim 64, ff 8192, vocab 49155), cut to 2 layers, in float32;
+2. `arctic`: arctic-480b at full width (d 7168, 56 heads over 8 KV heads,
+   head dim 128, expert ff 4864, dense residual ff 4864, vocab 32000),
+   cut to 1 layer and 8 experts, top-2, capacity factor 1.25, in float32
+   (about 6.1 GB of weights; the prefill's 97 tokens x 2 over 8 experts at
+   a capacity of 32 drop assignments);
+3. `recurrentgemma`: recurrentgemma-9b at full width (d 4096, LRU width
+   4096, conv width 4, 16 heads over 1 of head dim 256, window 2048,
+   gelu_glu ff 12288, vocab 256000, tied embeddings), cut to 3 layers (one
+   (rec, rec, lattn) segment), in float32 (about 6.6 GB of weights);
+4. `rwkv6`: rwkv6-7b at full width (d 4096, 64 heads of 64, channel-mix
+   ff 14336, vocab 65536), cut to 2 layers, in float32.
 
-Both use the weights of `repro_torch.models.convert.numpy_params(cfg,
+All use the weights of `repro_torch.models.convert.numpy_params(cfg,
 seed=0)` (numpy only, so the card's machine, which has no JAX, draws the
 same tree).  The JAX model prefills a fixed 97-token prompt and then
-decodes 8 teacher-forced tokens at positions 97..104 into a 105-position
-cache.  For each of those 9 steps the script prints the logits at 32
-fixed vocab ids, the argmax and the gap between the two largest logits;
-for arctic also each step's `expert_load` and the sha1 of the tokens.
+decodes 8 teacher-forced tokens at positions 97..104, into a 105-position
+cache for global attention (the window ring and the recurrent states
+need no room).  For each of those 9 steps the script prints the logits
+at 32 fixed vocab ids, the argmax and the gap between the two largest
+logits, and the sha1 of the tokens; for arctic also each step's
+`expert_load`.
 """
 import dataclasses
 import hashlib
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -59,9 +69,10 @@ def anchor(cfg) -> dict:
     tokens, ids = anchor_inputs(cfg.vocab)
     logits, cache, aux = transformer.prefill(
         cfg, params, {"tokens": jnp.asarray(tokens[:, :PROMPT])})
-    cache = [[{n: jnp.pad(c[n], ((0, 0), (0, 0), (0, STEPS), (0, 0),
-                                 (0, 0))) for n in c} for c in seg]
-             for seg in cache]
+    pad = ((0, 0), (0, 0), (0, STEPS), (0, 0), (0, 0))
+    cache = [[{n: jnp.pad(c[n], pad) for n in c}
+              if t in ("attn", "moe") else c for c, t in zip(seg, types)]
+             for seg, (types, _) in zip(cache, transformer.segments(cfg))]
     rows = [np.asarray(logits[0, -1], np.float64)]
     loads = [_loads(aux)]
     for i in range(PROMPT, PROMPT + STEPS):
@@ -79,18 +90,27 @@ def anchor(cfg) -> dict:
     }
     if cfg.is_moe:
         out["expert_load"] = loads
-        out["tokens_sha1"] = hashlib.sha1(tokens.tobytes()).hexdigest()
+    out["tokens_sha1"] = hashlib.sha1(tokens.tobytes()).hexdigest()
     return out
 
 
-def main():
+# the cut configurations, by name: (arch, overrides)
+ANCHORS = {
+    "granite": ("granite-3-2b", dict(num_layers=2)),
+    "arctic": ("arctic-480b", dict(num_layers=1, num_experts=8, top_k=2,
+                                   capacity_factor=1.25)),
+    "recurrentgemma": ("recurrentgemma-9b", dict(num_layers=3)),
+    "rwkv6": ("rwkv6-7b", dict(num_layers=2)),
+}
+
+
+def main(names):
     cb.load_all()
-    print(json.dumps(anchor(dataclasses.replace(
-        cb.get_config("granite-3-2b"), num_layers=2, dtype="float32"))))
-    print(json.dumps(anchor(dataclasses.replace(
-        cb.get_config("arctic-480b"), num_layers=1, num_experts=8,
-        top_k=2, capacity_factor=1.25, dtype="float32"))))
+    for name in names or ANCHORS:
+        arch, kw = ANCHORS[name]
+        print(json.dumps(anchor(dataclasses.replace(
+            cb.get_config(arch), dtype="float32", **kw))), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -164,3 +164,71 @@ def test_launch_serve_moe_matches_jax_launcher(monkeypatch, capsys, slots,
     assert {k: got[k] for k in want_batch} == want_batch
     assert {k: got["expert_slots"][k] for k in want_slots} == want_slots
     assert want_slots["fills"] > 0
+
+
+REC_ARCHS = ["recurrentgemma-9b", "rwkv6-7b"]
+
+
+def _perturbed(tree, seed=100):
+    """numpy_params with every zero leaf (norms, gate parameters) drawn."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: a if a.any() else
+        (0.1 * rng.standard_normal(a.shape)).astype(np.float32), tree)
+
+
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_recurrent_generated_tokens_equal_jax(arch):
+    """The recurrent archs' caches (window ring, RG-LRU and WKV states)
+    through the batcher's row writes: ragged prompts (one of two windows
+    of recurrentgemma's 32), more requests than rows, decoding past the
+    window; each request's tokens equal the JAX batcher's."""
+    jcfg, tcfg = jcb.get_config(arch).smoke(), tcb.get_config(arch).smoke()
+    tree = _perturbed(convert.numpy_params(tcfg, 0))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, tcfg.vocab, (t,)).astype(np.int32)
+               for t in (5, 30, 64, 17, 1)]
+    jb = jax_batcher(jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                     batch_size=2, max_len=96)
+    tb = model_batcher(tcfg, convert.params_from_numpy(tree, "cpu"),
+                       batch_size=2, max_len=96, device="cpu")
+    jreqs = [JRequest(i, p, max_new_tokens=12) for i, p in enumerate(prompts)]
+    treqs = [Request(i, p, max_new_tokens=12) for i, p in enumerate(prompts)]
+    for jr, tr in zip(jreqs, treqs):
+        jb.submit(jr)
+        tb.submit(tr)
+    jrep, trep = jb.run_until_drained(), tb.run_until_drained()
+    assert trep == jrep and trep["finished"] == 5
+    for jr, tr in zip(jreqs, treqs):
+        assert tr.generated == jr.generated, tr.rid
+
+
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_launch_serve_recurrent_matches_jax_launcher(monkeypatch, capsys,
+                                                     arch):
+    """The launcher on the recurrent smoke archs against the JAX
+    launcher's (`repro.launch.serve.main`), its weights carried across,
+    decoding past recurrentgemma's window: the batching reports are
+    equal."""
+    import json
+    import sys
+
+    from repro.launch import serve as jserve
+    from repro.models import transformer as jt
+
+    argv = ["--requests", "3", "--batch", "2", "--max-len", "48",
+            "--new-tokens", "36"]
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--smoke",
+                                      *argv])
+    jserve.main()
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    want = json.loads(line.split(": ", 1)[1])
+    jp = jt.init_params(jcb.get_config(arch).smoke(), jax.random.PRNGKey(0))
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   "cpu")
+    monkeypatch.setattr(tserve.transformer, "init_params",
+                        lambda cfg, gen, dev: tp)
+    got = tserve.serve(arch, smoke=True, device="cpu", num_requests=3,
+                       batch=2, max_len=48, new_tokens=36)
+    assert {k: got[k] for k in want} == want
+    assert want["finished"] == 3

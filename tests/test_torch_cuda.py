@@ -4,8 +4,12 @@ paths that launch it; the flash and decode attention kernels within the
 tolerances of test_kernels.py (2e-5 in f32, 2e-2 in bf16), plus the model
 path that launches them; the grouped-FFN kernel (`moe_gmm`,
 `moe_gmm_skip`) within test_kernels.py's 2e-5 / 3e-2, empty experts exact
-zeros, plus the MoE model path.  Marked `cuda`; every test skips without
-a CUDA device.  On a machine with a card:
+zeros, plus the MoE model path; the RG-LRU scan within
+test_kernels.py's 2e-5 and the WKV scan within its 5e-4 (bf16 inputs are
+widened exactly, so the same tolerances hold), from zero and from given
+states, plus the recurrent models' paths; the attention kernels at
+RecurrentGemma's head dim 256 with 16 query heads over 1.  Marked `cuda`;
+every test skips without a CUDA device.  On a machine with a card:
 `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
 """
 import dataclasses
@@ -19,6 +23,8 @@ from repro_torch.core import isa, simulator
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm as gmm
+from repro_torch.kernels import rglru_scan as rgs
+from repro_torch.kernels import rwkv6_scan as rws
 from repro_torch.kernels import window_distance as wd
 from repro_torch.models import transformer
 
@@ -157,7 +163,8 @@ def _assert_close(got, want, dtype):
     (1, 32, 8, 64, 0), (63, 8, 8, 64, 0), (64, 8, 2, 128, 0),
     (65, 8, 1, 64, 0), (1000, 32, 8, 64, 0), (300, 4, 1, 128, 50),
     (129, 8, 2, 64, 64),
-    (500, 56, 8, 128, 0), (77, 40, 8, 128, 0)])   # arctic G=7, llama4 G=5
+    (500, 56, 8, 128, 0), (77, 40, 8, 128, 0),    # arctic G=7, llama4 G=5
+    (300, 16, 1, 256, 128), (97, 4, 1, 256, 0)])  # recurrentgemma D=256
 def test_flash_kernel_matches_plain(dev, dtype, t, h, kh, dh, window):
     gen = torch.Generator(device=dev).manual_seed(t * 7 + dh)
     q = _randn(gen, (2, t, h, dh), dtype, dev)
@@ -181,7 +188,7 @@ def test_flash_kernel_reads_strided_views(dev):
 
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((1, 8, 4, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="recurrentgemma"):
+    with pytest.raises(NotImplementedError, match="window instead"):
         fa.flash_attention(q, q, q, q_offset=8)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
@@ -193,7 +200,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("b,s,h,kh,dh", [
     (4, 256, 8, 8, 64), (4, 2048, 32, 8, 64), (4, 300, 8, 1, 128),
     (4, 128, 4, 2, 128),
-    (4, 2048, 56, 8, 128), (4, 333, 40, 8, 128)])   # G=7 (arctic), G=5
+    (4, 2048, 56, 8, 128), (4, 333, 40, 8, 128),    # G=7 (arctic), G=5
+    (4, 2048, 16, 1, 256), (4, 100, 16, 1, 256)])   # recurrentgemma G=16
 def test_decode_kernel_matches_plain(dev, dtype, b, s, h, kh, dh):
     gen = torch.Generator(device=dev).manual_seed(s + h)
     q = _randn(gen, (b, h, dh), dtype, dev)
@@ -325,3 +333,108 @@ def test_moe_model_on_card_matches_plain_and_launches_both_kernels(dev):
         outs[mode] = (torch.cat(steps, 1), torch.cat(loads))
     _assert_close(outs["auto"][0], outs["plain"][0], torch.float32)
     assert torch.equal(outs["auto"][1], outs["plain"][1])
+
+
+# ---------------------------------------------------------------------------
+# recurrent scans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w,start", [
+    (2, 128, 128, False), (1, 256, 256, False), (2, 64, 512, False),
+    (3, 77, 200, True), (2, 1, 4096, True), (1, 1024, 4096, True)])
+def test_rglru_kernel_matches_plain(dev, dtype, b, t, w, start):
+    gen = torch.Generator(device=dev).manual_seed(b * t + w)
+    u = _randn(gen, (b, t, w), dtype, dev)
+    params = [_randn(gen, (w,), torch.float32, dev) * 0.1 for _ in range(4)]
+    params.append(torch.linspace(2.0, 6.0, w, device=dev))
+    h0 = _randn(gen, (b, w), torch.float32, dev) if start else None
+    before = rgs.rglru_scan.launches
+    got = rgs.rglru_scan(u, *params, h0)
+    assert rgs.rglru_scan.launches == before + 1
+    want = rgs.rglru_scan_plain(u, *params, h0)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=2e-5, rtol=2e-5)
+
+
+def test_rglru_kernel_reads_strided_u(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = _randn(gen, (2, 40, 96), torch.float32, dev)[:, ::2, :64]
+    params = [_randn(gen, (64,), torch.float32, dev) * 0.1
+              for _ in range(5)]
+    for g, w_ in zip(rgs.rglru_scan(u, *params),
+                     rgs.rglru_scan_plain(u, *params)):
+        torch.testing.assert_close(g, w_, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,n,start", [
+    (1, 128, 2, 32, False), (2, 128, 1, 64, False), (1, 64, 3, 16, False),
+    (2, 37, 4, 16, True), (8, 1, 64, 64, True), (1, 300, 8, 64, True)])
+def test_rwkv6_kernel_matches_plain(dev, dtype, b, t, h, n, start):
+    gen = torch.Generator(device=dev).manual_seed(b + t + h + n)
+    r, k, v = (_randn(gen, (b, t, h, n), dtype, dev) for _ in range(3))
+    logw = -torch.exp(_randn(gen, (b, t, h, n), torch.float32, dev) * 0.5)
+    u = _randn(gen, (h, n), torch.float32, dev) * 0.1
+    s0 = _randn(gen, (b, h, n, n), torch.float32, dev) if start else None
+    before = rws.rwkv6_scan.launches
+    got = rws.rwkv6_scan(r, k, v, logw, u, s0)
+    assert rws.rwkv6_scan.launches == before + 1
+    want = rws.rwkv6_scan_plain(r, k, v, logw, u, s0)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=5e-4, rtol=5e-4)
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(dev):
+    w = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        rgs.rglru_scan(torch.zeros((1, 3, 8), device=dev).half(), w, w, w,
+                       w, w)
+    with pytest.raises(ValueError, match="h0"):
+        rgs.rglru_scan(torch.zeros((1, 3, 8), device=dev), w, w, w, w, w,
+                       torch.zeros((2, 8), device=dev))
+    x = torch.zeros((1, 3, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        rws.rwkv6_scan(x, x, x, x, torch.zeros((2, 48), device=dev))
+    x = torch.zeros((1, 3, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="logw"):
+        rws.rwkv6_scan(x.bfloat16(), x.bfloat16(), x.bfloat16(),
+                       x.bfloat16(), torch.zeros((2, 16), device=dev))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_recurrent_model_on_card_matches_plain_and_launches_kernels(dev,
+                                                                   arch):
+    """The smoke recurrent archs (recurrentgemma at head dim 64, so the
+    attention kernels take it): a 64-token prompt (two of its 32-token
+    windows) and 8 decode steps around the ring through the kernels equal
+    the plain path; every recurrent block launches its scan at prefill
+    and at each step."""
+    cb.load_all()
+    cfg = cb.get_config(arch).smoke()
+    if cfg.window:
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 72)).astype(np.int32)
+    kernel = rgs.rglru_scan if cfg.window else rws.rwkv6_scan
+    blocks = sum(t in ("rec", "rwkv") for types, n in
+                 transformer.segments(cfg) for t in types for _ in range(n))
+    outs = {}
+    for mode in ("auto", "plain"):
+        before = kernel.launches
+        logits, cache, _ = transformer.prefill(
+            cfg, params, {"tokens": tokens[:, :64]}, use_kernel=mode)
+        steps = [logits]
+        for i in range(64, 72):
+            logits, cache, _ = transformer.decode_step(
+                cfg, params, {"tokens": tokens[:, i:i + 1],
+                              "positions": np.full((2,), i, np.int32)},
+                cache, use_kernel=mode)
+            steps.append(logits)
+        assert kernel.launches - before == \
+            (9 * blocks if mode == "auto" else 0)
+        outs[mode] = torch.cat(steps, 1)
+    torch.testing.assert_close(outs["auto"], outs["plain"], atol=1e-4,
+                               rtol=1e-4)

@@ -16,7 +16,7 @@ from repro_torch.configs import base as cb
 from repro_torch.core import isa, simulator, stackdist_interleaved
 from repro_torch.core import expert_slots
 from repro_torch.kernels import decode_attention, flash_attention, moe_gmm
-from repro_torch.kernels import window_distance
+from repro_torch.kernels import rglru_scan, rwkv6_scan, window_distance
 from repro_torch.models import convert, kvcache, moe, transformer
 from repro_torch.serve import engine
 
@@ -61,11 +61,12 @@ def test_no_jax_or_reference_import(path):
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("kernels.window_distance", "kernels.flash_attention",
-              "kernels.decode_attention", "kernels.moe_gmm", "configs.base",
+              "kernels.decode_attention", "kernels.moe_gmm",
+              "kernels.rglru_scan", "kernels.rwkv6_scan", "configs.base",
               "models.layers", "models.kvcache", "models.transformer",
-              "models.moe", "models.convert", "core.expert_slots",
-              "serve.batching", "serve.engine", "launch.serve",
-              "bench.bench_expert_slots"):
+              "models.moe", "models.rglru", "models.rwkv6",
+              "models.convert", "core.expert_slots", "serve.batching",
+              "serve.engine", "launch.serve", "bench.bench_expert_slots"):
         assert f"repro_torch.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -212,3 +213,31 @@ def test_forced_moe_kernels_on_cpu_tensors_raise():
                       skip_empty=True, use_kernel="kernel")
     assert (moe_gmm.moe_gmm.launches, moe_gmm.moe_gmm_skip.launches) == \
         before
+
+
+def test_forced_scan_kernels_on_cpu_tensors_raise(no_cuda):
+    """The RG-LRU and WKV kernels run only on CUDA tensors: forcing them
+    on CPU tensors raises, through the wrappers and through the model's
+    recurrent blocks, and launches nothing; their caches default to the
+    card too."""
+    w = torch.zeros(8)
+    before = (rglru_scan.rglru_scan.launches, rwkv6_scan.rwkv6_scan.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan.rglru_scan(torch.zeros((1, 3, 8)), w, w, w, w, w,
+                              use_kernel="kernel")
+    x = torch.zeros((1, 3, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_scan.rwkv6_scan(x, x, x, x, torch.zeros((2, 16)),
+                              use_kernel=True)
+    cb.load_all()
+    for arch in ("recurrentgemma-9b", "rwkv6-7b"):
+        cfg = cb.get_config(arch).smoke()
+        params = transformer.init_params(cfg, torch.Generator(), "cpu")
+        with pytest.raises(ValueError, match="CUDA"):
+            transformer.prefill(cfg, params,
+                                {"tokens": np.zeros((1, 3), np.int32)},
+                                use_kernel="kernel")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            transformer.init_cache(cfg, 2, 8)
+    assert (rglru_scan.rglru_scan.launches,
+            rwkv6_scan.rwkv6_scan.launches) == before

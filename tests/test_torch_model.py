@@ -1,13 +1,15 @@
 """The port's decoder (`repro_torch.models.transformer`) against the JAX
-package's (`repro.models.transformer`) for every attention-only arch and
-both MoE archs at smoke size, in f32: the same numpy weights
-(`convert.numpy_params`, with the norm scales and biases perturbed so
-they count) and inputs into both; prefill logits, the prefill cache and
-8 teacher-forced decode steps (logits and cache) agree to 1e-4 (f32
-rounding of different summation orders over 2 layers), and every MoE
-layer's `expert_load` equals JAX's exactly.  Plus the port's own golden
-check: prefill then decode reproduces the full-sequence logits, as
-test_models.py holds the JAX package to (the MoE smoke configs'
+package's (`repro.models.transformer`) for every arch of the zoo at smoke
+size, in f32: the same numpy weights (`convert.numpy_params`, with the
+norm scales, biases and zero gate parameters perturbed so they count)
+and inputs into both; prefill logits, the prefill cache (K/V, window
+ring, recurrent states) and 8 teacher-forced decode steps (logits and
+cache) agree to 1e-4 (f32 rounding of different summation orders over 2
+or 3 layers), and every MoE layer's `expert_load` equals JAX's exactly.
+recurrentgemma's prompts include one of two windows (the JAX model's
+two-chunk path) and decode steps past the window.  Plus the port's own
+golden check: prefill then decode reproduces the full-sequence logits,
+as test_models.py holds the JAX package to (the MoE smoke configs'
 capacity factor of 8 drops no token, so the two capacities agree)."""
 import dataclasses
 
@@ -31,6 +33,7 @@ tcb.load_all()
 ATTN_ARCHS = ["granite-3-2b", "qwen1.5-4b", "qwen1.5-110b", "minitron-4b",
               "musicgen-medium", "qwen2-vl-7b"]
 MOE_ARCHS = ["arctic-480b", "llama4-maverick-400b-a17b"]
+REC_ARCHS = ["recurrentgemma-9b", "rwkv6-7b"]
 TOL = 1e-4
 B, T0, STEPS = 2, 9, 8
 
@@ -85,22 +88,33 @@ def _step(cfg, batch, i):
     return db
 
 
-def _pad_jax(cache, length):
+def _full(cfg):
+    """Per segment, per block: does its cache grow with the context (K/V
+    of global attention)?  Window rings and recurrent states do not."""
+    return [[t in ("attn", "moe") for t in types]
+            for types, _ in tt.segments(cfg)]
+
+
+def _pad_jax(cfg, cache, length):
     return [[{n: jnp.pad(c[n], ((0, 0), (0, 0), (0, length - c[n].shape[2]),
-                                (0, 0), (0, 0))) for n in c} for c in seg]
-            for seg in cache]
+                                (0, 0), (0, 0))) for n in c} if grow else c
+             for c, grow in zip(seg, fseg)]
+            for seg, fseg in zip(cache, _full(cfg))]
 
 
-def _pad_torch(cache, length):
+def _pad_torch(cfg, cache, length):
     return [[{n: torch.nn.functional.pad(
         c[n], (0, 0, 0, 0, 0, length - c[n].shape[2])) for n in c}
-        for c in seg] for seg in cache]
+        if grow else c for c, grow in zip(seg, fseg)]
+        for seg, fseg in zip(cache, _full(cfg))]
 
 
 def _cache_close(tcache, jcache):
     for tseg, jseg in zip(tcache, jcache, strict=True):
         for tc, jc in zip(tseg, jseg, strict=True):
-            for n in ("k", "v"):
+            assert set(tc) == set(jc)
+            for n in tc:
+                assert str(tc[n].dtype).split(".")[-1] == str(jc[n].dtype)
                 _close(tc[n], jc[n])
 
 
@@ -128,8 +142,8 @@ def test_prefill_and_decode_match_jax(arch):
     _cache_close(tcache, jcache)
     _aux_equal(taux, jaux)
 
-    jcache, tcache = _pad_jax(jcache, T0 + STEPS), _pad_torch(tcache,
-                                                               T0 + STEPS)
+    jcache = _pad_jax(jcfg, jcache, T0 + STEPS)
+    tcache = _pad_torch(tcfg, tcache, T0 + STEPS)
     for i in range(T0, T0 + STEPS):
         db = _step(tcfg, batch, i)
         jl, jcache, jaux = jt.decode_step(
@@ -148,7 +162,8 @@ def test_moe_decode_takes_the_router_bias():
     _, jcache, _ = jt.prefill(jcfg, jp, {"tokens": jnp.asarray(
         batch["tokens"][:, :T0])})
     _, tcache, _ = tt.prefill(tcfg, tp, {"tokens": batch["tokens"][:, :T0]})
-    jcache, tcache = _pad_jax(jcache, T0 + 1), _pad_torch(tcache, T0 + 1)
+    jcache = _pad_jax(jcfg, jcache, T0 + 1)
+    tcache = _pad_torch(tcfg, tcache, T0 + 1)
     bias = np.full((tcfg.num_experts,), -6.0, np.float32)
     bias[[2, 5]] = 6.0
     db = dict(_step(tcfg, batch, T0), router_bias=bias)
@@ -168,7 +183,7 @@ def test_jax_cache_carries_across():
     batch = _batch(tcfg, B, T0 + 1)
     _, jcache, _ = jt.prefill(jcfg, jp, {"tokens": jnp.asarray(
         batch["tokens"][:, :T0])})
-    jcache = _pad_jax(jcache, T0 + 1)
+    jcache = _pad_jax(jcfg, jcache, T0 + 1)
     tcache = convert.cache_from_numpy(
         jax.tree_util.tree_map(np.asarray, jcache), "cpu")
     db = _step(tcfg, batch, T0)
@@ -179,7 +194,7 @@ def test_jax_cache_carries_across():
     _cache_close(tcache, jcache)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_ARCHS + REC_ARCHS)
 def test_prefill_decode_golden_consistency(arch):
     """Teacher-forced decode reproduces the full-sequence logits (the
     check test_models.py holds the JAX package to, at its 2e-3)."""
@@ -193,7 +208,7 @@ def test_prefill_decode_golden_consistency(arch):
     logits0, cache, _ = tt.prefill(
         cfg, params, {k: v[:, :t0] for k, v in batch.items()})
     _close(logits0[:, 0], full[:, t0 - 1], 2e-3)
-    cache = _pad_torch(cache, t)
+    cache = _pad_torch(cfg, cache, t)
     for i in range(t0, t):
         logits, cache, _ = tt.decode_step(cfg, params, _step(cfg, batch, i),
                                           cache)
@@ -206,11 +221,12 @@ def _shapes(tree):
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "qwen1.5-4b",
                                   "musicgen-medium", "arctic-480b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b"] + REC_ARCHS)
 def test_init_params_tree_matches_jax(arch):
     """Same nesting, leaf shapes and dtypes as the JAX package's
     init_params, both from init_params and from numpy_params (a moe
-    block's router stays float32 in a bf16 model)."""
+    block's router, the RG-LRU gate parameters and RWKV6's mixes, decay
+    bias, bonus and head norm stay float32 in a bf16 model)."""
     jcfg = dataclasses.replace(jcb.get_config(arch).smoke(),
                                dtype="bfloat16")
     tcfg = dataclasses.replace(tcb.get_config(arch).smoke(),
@@ -264,14 +280,78 @@ def test_decoder_module_holds_the_tree():
 
 
 def test_later_blocks_and_sharding_raise():
-    for arch, slice_name in (("recurrentgemma-9b", "recurrentgemma"),
-                             ("rwkv6-7b", "rwkv6")):
+    """Every registered arch's smoke config initialises (parameters and
+    a decode cache: every block type is ported) and an unknown block type
+    raises ValueError; a sharding context and a forced kernel on CPU
+    tensors still raise."""
+    for arch in tcb.list_configs():
         cfg = tcb.get_config(arch).smoke()
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tt.init_params(cfg, torch.Generator(), "cpu")
+        params = tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        cache = tt.init_cache(cfg, 2, 8, "cpu")
+        assert len(params["segments"]) == len(cache) == \
+            len(tt.segments(cfg))
+    with pytest.raises(ValueError, match="conv"):
+        tt._init_block("conv", torch.Generator(), cfg, "cpu")
+    with pytest.raises(ValueError, match="conv"):
+        tt.init_cache(dataclasses.replace(
+            tcb.get_config("recurrentgemma-9b").smoke(),
+            pattern=("rec", "conv")), 1, 8, "cpu")
     cfg = tcb.get_config("granite-3-2b").smoke()
     params = tt.init_params(cfg, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="one card"):
         tt.prefill(cfg, params, _batch(cfg, 1, 4), shd=object())
     with pytest.raises(ValueError, match="CUDA"):
         tt.prefill(cfg, params, _batch(cfg, 1, 4), use_kernel="kernel")
+
+
+@pytest.mark.parametrize("arch,t0", [
+    ("recurrentgemma-9b", 9), ("recurrentgemma-9b", 28),
+    ("recurrentgemma-9b", 64), ("rwkv6-7b", 9), ("rwkv6-7b", 64)])
+def test_recurrent_prefill_and_decode_match_jax(arch, t0):
+    """Prefill logits, cache and states, then 8 decode steps (logits,
+    ring and states) against JAX.  recurrentgemma (window 32): a short
+    prompt, one whose decode crosses the window (28..35), and a 64-token
+    prompt (two windows: JAX's two-chunk path, the port's one windowed
+    call), decoding at 64..71 around the ring; rwkv6: JAX's per-token
+    scan (9) and its chunked form (64) at prefill."""
+    jcfg, jp, tcfg, tp = _both(arch)
+    batch = _batch(tcfg, B, t0 + STEPS)
+    pre = {k: v[:, :t0] for k, v in batch.items()}
+    jl, jcache, _ = jt.prefill(jcfg, jp, jax.tree_util.tree_map(
+        jnp.asarray, pre))
+    tl, tcache, _ = tt.prefill(tcfg, tp, pre)
+    _close(tl, jl)
+    _cache_close(tcache, jcache)
+    for i in range(t0, t0 + STEPS):
+        db = _step(tcfg, batch, i)
+        jl, jcache, _ = jt.decode_step(
+            jcfg, jp, jax.tree_util.tree_map(jnp.asarray, db), jcache)
+        tl, tcache, _ = tt.decode_step(tcfg, tp, db, tcache)
+        _close(tl, jl)
+    _cache_close(tcache, jcache)
+
+
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_jax_recurrent_cache_carries_across(arch):
+    """Decoding from the JAX package's prefill cache (window ring and
+    recurrent states), carried over with `cache_from_numpy`, gives the
+    JAX package's decode logits; with a working dtype the states stay
+    float32."""
+    jcfg, jp, tcfg, tp = _both(arch)
+    batch = _batch(tcfg, B, T0 + 1)
+    _, jcache, _ = jt.prefill(jcfg, jp, {"tokens": jnp.asarray(
+        batch["tokens"][:, :T0])})
+    numpy_cache = jax.tree_util.tree_map(np.asarray, jcache)
+    tcache = convert.cache_from_numpy(numpy_cache, "cpu")
+    db = _step(tcfg, batch, T0)
+    jl, jcache, _ = jt.decode_step(
+        jcfg, jp, jax.tree_util.tree_map(jnp.asarray, db), jcache)
+    tl, tcache, _ = tt.decode_step(tcfg, tp, db, tcache)
+    _close(tl, jl)
+    _cache_close(tcache, jcache)
+    half = convert.cache_from_numpy(numpy_cache, "cpu", torch.bfloat16)
+    for seg in half:
+        for c in seg:
+            for n, a in c.items():
+                assert a.dtype == (torch.bfloat16 if n in ("k", "v")
+                                   else torch.float32), n
