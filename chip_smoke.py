@@ -30,7 +30,13 @@ equals the plain one; then serves 16 requests of granite-3-2b at full
 width and depth through `repro_torch.launch.serve` (the main path of this
 slice, both kernels' launches counted), and times both kernels at the
 serving shapes beside their bound, their plain versions and PyTorch's
-`scaled_dot_product_attention` (timed only, never on the path).
+`scaled_dot_product_attention` (timed only, never on the path).  The
+bf16 kernels are Hopper designs: flash runs both products as `wgmma` on
+TMA-fed bf16 tiles, decode splits the KV axis across CTAs (then a merge
+kernel) with `mma.sync` products; each is timed twice, by CUDA events
+over back-to-back wrapper calls (`ms`) and by its device time under
+`torch.profiler` (`device_ms`, the merge included), SDPA likewise, and
+flash at prompts of 128 to 2,048 tokens.
 
 The MoE slice: it holds the grouped-FFN kernel's two entry points
 (`moe_gmm`, `moe_gmm_skip`) against their plain versions (f32 and bf16,
@@ -495,6 +501,71 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_us(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    return evt.self_cuda_time_total if us is None else us
+
+
+# The profiler can lose the last records of a session, most often in the
+# first session after a stretch of unprofiled work (PERF.md).  Every
+# session this script profiles therefore ends on `PROFILE_FILLERS` empty
+# spin kernels, which no reading counts, and `device_ms` takes the best
+# of a few sessions.
+PROFILE_FILLERS = 64
+FILLER_KERNEL = "spin_kernel"          # torch.cuda._sleep's kernel
+
+
+@contextlib.contextmanager
+def profiled():
+    """A `torch.profiler` session of the CPU and the card whose block is
+    followed by `PROFILE_FILLERS` spin kernels (see `cuda_rows`)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield prof
+        for _ in range(PROFILE_FILLERS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+
+def cuda_rows(prof) -> list:
+    """The profiler's per-kernel rows of the card, the fillers left out."""
+    return [evt for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and evt.count and FILLER_KERNEL not in evt.key]
+
+
+def device_ms(fn, reps: int, sessions: int = 3) -> tuple[float | None,
+                                                         float]:
+    """Device milliseconds of one call of `fn` under `torch.profiler`, and
+    the share of its kernels' launches the profiler kept a record of.
+    `reps` calls are profiled after one warm-up; each kernel `fn`
+    launches once a call (the flash kernel; decode's split and merge;
+    SDPA's kernel and its memset) counts at its mean over the records
+    kept, so a record the profiler lost shortens nothing.  A session that
+    lost records is tried again, up to `sessions` in all, and the one
+    that kept most is read; where none kept a record the device time is
+    None (not measured) and the share 0.  `cuda_ms` times the calls back
+    to back and so also sees the host between launches (a wrapper's
+    ctypes call and checks, ~30-60 us); this sees the card's work
+    alone."""
+    fn()
+    torch.cuda.synchronize()
+    best = (None, 0.0)
+    for _ in range(sessions):
+        with profiled() as prof:
+            for _ in range(reps):
+                fn()
+        kernels = [(evt.count, _device_us(evt)) for evt in cuda_rows(prof)]
+        if kernels and sum(us for _, us in kernels) > 0:
+            kept = min(1.0, min(n for n, _ in kernels) / reps)
+            if kept > best[1]:
+                best = (sum(us / n for n, us in kernels) / 1e3, kept)
+            if kept == 1.0:
+                break
+    return best
+
+
 def max_err(got, want) -> float:
     """Largest absolute difference over all fields (int32 counters and
     float32 CPIs alike, taken in float64)."""
@@ -572,7 +643,10 @@ def phase_build() -> None:
     emit("build_moe", seconds=secs, library=libs.pop("moe_gmm"))
     emit("build_recurrent", seconds=secs,
          libraries={k: libs.pop(k) for k in ("rglru_scan", "rwkv6_scan")})
-    emit("build_attention", seconds=secs, libraries=libs)
+    from repro_torch.kernels import common
+    emit("build_attention", seconds=secs, libraries=libs,
+         ptxas={name: common.ptxas_report(mod.SOURCE)
+                for name, mod in mods if name in libs})
 
 
 QUANTUM_MENU = (6, 37, 120, 1 << 30)
@@ -951,13 +1025,80 @@ def phase_attention_vs_plain(dev, errs: dict) -> None:
     for (name, _), err in worst.items():
         key = f"{name}_attention"
         errs[key] = max(errs[key], err)
-    lib = da.common.library(da.SOURCE, da._declare)
     emit("attention_vs_plain", flash_cases=len(FLASH_CASES),
          decode_cases=len(DECODE_CASES), dtypes=["float32", "bfloat16"],
          tolerance=ATTN_TOL, max_abs_err={f"{n} {d}": e for (n, d), e in
                                            worst.items()}, match=True,
-         decode_smem_bytes={f"G={g} D=128": lib.decode_attention_smem_bytes(
-             g, 128) for g in (4, 5, 7)})
+         decode_smem_bytes={f"G={g} D=128 {n}": da.smem_bytes(g, 128, t)
+                            for g in (4, 5, 7) for n, t in (
+                                ("f32", torch.float32),
+                                ("bf16", torch.bfloat16))})
+
+
+# (name, flash (T, H, KH, D, window), decode (B, S, H, KH, D)): the
+# model path's shapes of granite, arctic and recurrentgemma
+ACCURACY_CASES = (
+    ("granite", (1024, 32, 8, 64, 0), (8, 2048, 32, 8, 64)),
+    ("arctic", (300, 56, 8, 128, 0), (1, 308, 56, 8, 128)),
+    ("recurrentgemma", (1024, 16, 1, 256, 2048), (8, 2048, 16, 1, 256)))
+# a bf16 kernel's relative L2 error may exceed the floor that rounding
+# the exact result to bf16 sets by this factor (P rounded to bf16 alone,
+# without its lo part, reads above it)
+ACCURACY_FLOOR_FACTOR = 1.1
+
+
+def _attention_f64(q, k, v, valid):
+    """softmax(q k^T dh^-0.5, where `valid` (..., Tq, Tk)) v in float64,
+    q (B, Tq, H, D) over k/v (B, Tk, KH, D)."""
+    h, kh, d = q.shape[2], k.shape[2], q.shape[3]
+    kd = k.double().repeat_interleave(h // kh, 2)
+    vd = v.double().repeat_interleave(h // kh, 2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kd) * d ** -0.5
+    sc = sc.masked_fill(~valid, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), vd)
+
+
+def phase_attention_accuracy(dev) -> dict:
+    """Relative L2 error of both bf16 kernels against a float64 reference
+    at the model path's shapes, beside the floor that rounding the exact
+    result to bf16 sets: the kernels split P into bf16 hi + lo parts for
+    P V so that they sit at that floor (P in bf16 alone adds ~1e-3 and
+    flips near-tied routes of arctic's MoE layers downstream)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(21)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    rel = lambda a, b: float((a.double() - b).norm() / b.norm())
+    out = {}
+    for name, (t, h, kh, d, window), (b, s, dh, dkh, dd) in ACCURACY_CASES:
+        q, k, v = r(1, t, h, d), r(1, t, kh, d), r(1, t, kh, d)
+        pos = torch.arange(t, device=dev)
+        valid = pos[None, :] <= pos[:, None]
+        if window:
+            valid &= pos[None, :] > pos[:, None] - window
+        want = _attention_f64(q, k, v, valid)
+        flash = dict(kernel=rel(fa.flash_attention(q, k, v, window=window),
+                                want),
+                     floor=rel(want.to(torch.bfloat16), want))
+        q, kc, vc = r(b, dh, dd), r(b, s, dkh, dd), r(b, s, dkh, dd)
+        kv_len = torch.as_tensor(np.random.default_rng(s).integers(
+            1, s + 1, b).astype(np.int32), device=dev)
+        valid = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])[
+            :, None, None, :]
+        want = _attention_f64(q[:, None], kc, vc, valid)[:, 0]
+        decode = dict(kernel=rel(da.decode_attention(q, kc, vc, kv_len),
+                                 want),
+                      floor=rel(want.to(torch.bfloat16), want))
+        for kind, x in (("flash", flash), ("decode", decode)):
+            check(x["kernel"] <= ACCURACY_FLOOR_FACTOR * x["floor"],
+                  f"{kind} at {name}'s shape: relative L2 {x['kernel']} "
+                  f"against float64, above {ACCURACY_FLOOR_FACTOR} x the "
+                  f"bf16 rounding floor {x['floor']}")
+        out[name] = {"flash": flash, "decode": decode}
+    emit("attention_accuracy", dtype="bfloat16", rel_l2=out,
+         floor_factor=ACCURACY_FLOOR_FACTOR)
+    return out
 
 
 def _granite(**kw):
@@ -1120,37 +1261,44 @@ def phase_model_serve(dev) -> dict:
     return launches
 
 
+def _kernel_kind(name: str) -> str:
+    name = name.lower()
+    for needle, kind in (("flash_kernel", "flash_attention"),
+                         ("decode_kernel", "decode_attention"),
+                         ("moe_gmm_skip_kernel", "moe_gmm_skip"),
+                         ("moe_gmm_kernel", "moe_gmm"),
+                         ("rglru_kernel", "rglru_scan"),
+                         ("rwkv6_kernel", "rwkv6_scan")):
+        if needle in name:
+            return kind
+    if any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def _kernel_records(prof) -> dict:
+    """Records the profiler kept of each of the port's kernels, by kind
+    (the decode kernel's split and merge launches each count)."""
+    out = {}
+    for evt in cuda_rows(prof):
+        kind = _kernel_kind(evt.key)
+        if kind not in ("gemm", "other"):
+            out[kind] = out.get(kind, 0) + evt.count
+    return out
+
+
 def _kernel_ms(prof) -> dict:
     """Device milliseconds of the kernels a torch.profiler run saw, summed
     by kind (the attention kernels, the two grouped-FFN entry points, the
-    two recurrent scans, GEMMs, everything else)."""
+    two recurrent scans, GEMMs, everything else).  Each kernel of the
+    port names its kind in its symbol (`flash_kernel_wgmma`,
+    `decode_kernel_merge`, ...), so it is matched before the library's
+    GEMMs."""
     kinds = dict.fromkeys(("flash_attention", "decode_attention", "moe_gmm",
                            "moe_gmm_skip", "rglru_scan", "rwkv6_scan",
                            "gemm", "other"), 0.0)
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        name = evt.key.lower()
-        if "flash_kernel" in name:
-            kind = "flash_attention"
-        elif "decode_kernel" in name:
-            kind = "decode_attention"
-        elif "moe_gmm_skip_kernel" in name:
-            kind = "moe_gmm_skip"
-        elif "moe_gmm_kernel" in name:
-            kind = "moe_gmm"
-        elif "rglru_kernel" in name:
-            kind = "rglru_scan"
-        elif "rwkv6_kernel" in name:
-            kind = "rwkv6_scan"
-        elif any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass")):
-            kind = "gemm"
-        else:
-            kind = "other"
-        kinds[kind] += us / 1e3
+    for evt in cuda_rows(prof):
+        kinds[_kernel_kind(evt.key)] += _device_us(evt) / 1e3
     return kinds
 
 
@@ -1170,10 +1318,25 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
     of 8 steady decode steps, without the profiler; then the same windows
     under `torch.profiler` for the device time of each kind of kernel.
     The device's idle share is 1 - device time / unprofiled wall time.
-    One line each, `<prefix>_admission` and `<prefix>_decode`."""
-    from torch.profiler import ProfilerActivity, profile
+    One line each, `<prefix>_admission` and `<prefix>_decode`, with the
+    records the profiler kept of each of the port's kernels beside the
+    launches their wrappers counted in the same window (the profiler of a
+    long-lived process can drop some: the device times are then short by
+    that share)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
     from repro_torch.launch import serve
     from repro_torch.serve.engine import model_batcher
+    wrappers = {"flash_attention": fa.flash_attention,
+                "decode_attention": da.decode_attention,
+                "moe_gmm": gmm.moe_gmm, "moe_gmm_skip": gmm.moe_gmm_skip,
+                "rglru_scan": rgs.rglru_scan, "rwkv6_scan": rws.rwkv6_scan}
+    # kernels a wrapper call runs: decode's split and merge, the grouped
+    # FFN's two stages
+    per_launch = {"decode_attention": 2, "moe_gmm": 2, "moe_gmm_skip": 2}
     reqs = lambda: serve.requests(cfg, SERVE["batch"], 24,
                                   SERVE["prompt_len"], seed=1)
     prompt_tokens = sum(len(r.prompt) for r in reqs())
@@ -1186,12 +1349,17 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
             for _ in range(warm):
                 batcher.step()
             torch.cuda.synchronize()
+            before = {k: w.launches for k, w in wrappers.items()}
             with wrap() as ctx:
                 t0 = time.perf_counter()
                 for _ in range(n):
                     batcher.step()
                 torch.cuda.synchronize()
-                out[name] = (1e3 * (time.perf_counter() - t0) / n, ctx)
+                launched = {k: (w.launches - before[k]) *
+                            per_launch.get(k, 1)
+                            for k, w in wrappers.items()}
+                out[name] = (1e3 * (time.perf_counter() - t0) / n, ctx,
+                             {k: v for k, v in launched.items() if v})
         return out
 
     plain = windows(model_batcher(cfg, params, SERVE["batch"],
@@ -1199,13 +1367,13 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
                     contextlib.nullcontext)
     traced = windows(model_batcher(cfg, params, SERVE["batch"],
                                    SERVE["max_len"], device=dev),
-                     lambda: profile(activities=[ProfilerActivity.CPU,
-                                                 ProfilerActivity.CUDA]))
+                     profiled)
     steps = {"admission": 1, "decode": 8}
     for name in ("admission", "decode"):
         wall_ms = plain[name][0]
-        kinds = {k: v / steps[name]
-                 for k, v in _kernel_ms(traced[name][1]).items()}
+        _, prof, launched = traced[name]
+        kinds = {k: v / steps[name] for k, v in _kernel_ms(prof).items()}
+        records = _kernel_records(prof)
         busy = sum(kinds.values())
         # a profiler that sees no device time measures nothing: say so
         # rather than report an idle share of 1
@@ -1216,7 +1384,9 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
              traced_wall_ms_per_step=traced[name][0],
              device_ms_per_step=busy if busy > 0 else None,
              idle_share=1.0 - busy / wall_ms if busy > 0 else None,
-             device_ms_by_kind=kinds if busy > 0 else None)
+             device_ms_by_kind=kinds if busy > 0 else None,
+             kernel_records={k: [records.get(k, 0), n]
+                             for k, n in launched.items()})
 
 
 def _sdpa(q, k, v, **kw):
@@ -1227,11 +1397,94 @@ def _sdpa(q, k, v, **kw):
         enable_gqa=True, **kw)
 
 
+def _visible_pairs(t: int, window: int) -> int:
+    """(q, k) pairs a causal prompt of t tokens attends, within `window`."""
+    if not window or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def _time_flash(q, k, v, window: int, reps: int, plain: bool) -> dict:
+    """Times of the flash kernel at one prompt: the CUDA-event mean of
+    back-to-back wrapper calls (`ms`), its device time (`device_ms`),
+    SDPA's device and event times on the same inputs (a band mask when
+    the window is shorter than the prompt), the plain version's event
+    time when `plain`, and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    _, t, h, d = q.shape
+    kh = k.shape[2]
+    if window and window < t:
+        pos = torch.arange(t, device=q.device)
+        band = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        lib = lambda: _sdpa(q, k, v, attn_mask=band)
+    else:
+        lib = lambda: _sdpa(q, k, v, is_causal=True)
+    kernel = lambda: fa.flash_attention(q, k, v, window=window)
+    flops = 4 * h * d * _visible_pairs(t, window)
+    nbytes = 2 * t * (2 * h + 2 * kh) * d
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    dev_ms, kept = device_ms(kernel, reps)
+    lib_dev_ms, lib_kept = device_ms(lib, reps)
+    return dict(
+        ms=cuda_ms(kernel, reps), device_ms=dev_ms,
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window), 3) if plain else None,
+        library_ms=cuda_ms(lib, reps), library_device_ms=lib_dev_ms,
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=nbytes,
+        profiler_records_kept=[kept, lib_kept])
+
+
+def _time_decode(q, kc, vc, kv_len, reps: int) -> dict:
+    """Times of the decode kernel over a stack of layers' caches, cycled
+    (as a decode step meets them, beyond the L2): event and device time
+    of the kernel (its split and merge launches) and of SDPA, the plain
+    version's event time, and the bytes bound of this kv_len."""
+    from repro_torch.kernels import decode_attention as da
+    layers, b, s, kh, d = kc.shape
+    h = q.shape[1]
+    mask = (torch.arange(s, device=q.device)[None, :] < kv_len[:, None])[
+        :, None, None, :]
+    state = {"i": 0}
+
+    def cycled(fn):
+        def call():
+            i = state["i"] = (state["i"] + 1) % layers
+            fn(kc[i], vc[i])
+        return call
+
+    kernel = cycled(lambda kk, vv: da.decode_attention(q, kk, vv, kv_len))
+    lib = cycled(lambda kk, vv: _sdpa(q[:, None], kk, vv, attn_mask=mask))
+    n_len = int(kv_len.sum())
+    nbytes = 2 * (2 * n_len * kh * d + 2 * b * h * d) + 4 * b
+    flops = 4 * n_len * h * d
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    dev_ms, kept = device_ms(kernel, reps)
+    lib_dev_ms, lib_kept = device_ms(lib, reps)
+    return dict(
+        ms=cuda_ms(kernel, reps), device_ms=dev_ms,
+        plain_ms=cuda_ms(cycled(lambda kk, vv: da.decode_attention_plain(
+            q, kk, vv, kv_len)), max(2, reps // 10)),
+        library_ms=cuda_ms(lib, reps), library_device_ms=lib_dev_ms,
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        splits=list(da.split_plan(b, kh, s)), flops=flops, bytes=nbytes,
+        profiler_records_kept=[kept, lib_kept])
+
+
+FLASH_PROMPTS = (128, 512, 1024, 2048)   # granite's shape, prompt lengths
+
+
 def phase_time_attention(dev, errs: dict) -> dict:
     """Kernel, plain and library times at the serving shapes: prefill of
-    a 1024-token prompt, and a decode step at batch 8 over a 2048-slot
-    cache with ragged kv_len.  Decode cycles through 4 layers' caches
-    (134 MB, beyond the 50 MB L2), as a decode step meets them."""
+    a 1024-token prompt (and of 128, 512 and 2,048 tokens: kernel, SDPA
+    and bound only), and a decode step at batch 8 over a 2048-slot cache
+    with ragged kv_len.  Decode cycles through 4 layers' caches (134 MB,
+    beyond the 50 MB L2), as a decode step meets them.  Each time twice:
+    CUDA events over back-to-back calls (`ms`, the host's wrapper call
+    included) and the profiler's device time (`device_ms`)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     cfg = _granite()
@@ -1241,23 +1494,19 @@ def phase_time_attention(dev, errs: dict) -> dict:
     r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)
     out = {}
 
-    t = 1024
-    q, k, v = r(1, t, h, d), r(1, t, kh, d), r(1, t, kh, d)
-    err = _attn_err(fa.flash_attention(q, k, v),
-                    fa.flash_attention_plain(q, k, v), dt, "flash timing")
-    errs["flash_attention"] = max(errs["flash_attention"], err)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
-    lib_ms = cuda_ms(lambda: _sdpa(q, k, v, is_causal=True), 20)
-    flops = 4 * h * d * (t * (t + 1) // 2)
-    nbytes = 2 * t * (2 * h + 2 * kh) * d
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    prompts = {}
+    for t in FLASH_PROMPTS:
+        q, k, v = r(1, t, h, d), r(1, t, kh, d), r(1, t, kh, d)
+        err = _attn_err(fa.flash_attention(q, k, v),
+                        fa.flash_attention_plain(q, k, v), dt,
+                        f"flash timing T={t}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        prompts[t] = _time_flash(q, k, v, 0, 20, plain=t == 1024)
     out["flash_attention"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        shape=f"prefill B=1 T={t} H={h} KH={kh} D={d} bf16 causal",
-        flops=flops, bytes=nbytes)
+        prompts[1024],
+        shape=f"prefill B=1 T=1024 H={h} KH={kh} D={d} bf16 causal",
+        prompts={str(t): {k: v for k, v in x.items() if k != "plain_ms"}
+                 for t, x in prompts.items()})
     emit("time_flash_attention", **out["flash_attention"])
 
     b, s, layers = 8, 2048, 4
@@ -1269,34 +1518,10 @@ def phase_time_attention(dev, errs: dict) -> dict:
                     da.decode_attention_plain(q, kc[0], vc[0], kv_len), dt,
                     "decode timing")
     errs["decode_attention"] = max(errs["decode_attention"], err)
-    mask = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])[
-        :, None, None, :]
-
-    def cycled(fn):
-        state = {"i": 0}
-
-        def call():
-            i = state["i"] = (state["i"] + 1) % layers
-            fn(kc[i], vc[i])
-        return call
-
-    ms = cuda_ms(cycled(lambda kk, vv: da.decode_attention(q, kk, vv,
-                                                           kv_len)), 200)
-    plain_ms = cuda_ms(cycled(lambda kk, vv: da.decode_attention_plain(
-        q, kk, vv, kv_len)), 20)
-    lib_ms = cuda_ms(cycled(lambda kk, vv: _sdpa(
-        q[:, None], kk, vv, attn_mask=mask)), 200)
-    n_len = int(kv_len.sum())
-    nbytes = 2 * (2 * n_len * kh * d + 2 * b * h * d) + 4 * b
-    flops = 4 * n_len * h * d
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     out["decode_attention"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        _time_decode(q, kc, vc, kv_len, 200),
         shape=f"decode B={b} S={s} H={h} KH={kh} D={d} bf16, "
-              f"kv_len {kv_len.tolist()}",
-        flops=flops, bytes=nbytes)
+              f"kv_len {kv_len.tolist()}")
     emit("time_decode_attention", **out["decode_attention"])
     return out
 
@@ -1569,7 +1794,6 @@ def phase_slot_engine(dev, cfg, params) -> None:
     per layer-step and synchronised wall ms per step from one run; then
     a second run of the same engine under `torch.profiler` for
     `moe_gmm_skip`'s device ms per step (`_kernel_ms`)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import moe_gmm
     from repro_torch.serve.engine import EngineConfig, SlotServeEngine
     moe_layers = sum(cfg.moe_layer_mask())
@@ -1590,10 +1814,8 @@ def phase_slot_engine(dev, cfg, params) -> None:
             secs = time.perf_counter() - t0
             del eng
             eng, before = engine(), moe_gmm.moe_gmm_skip.launches
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profiled() as prof:
                 eng.run(SLOT_STEPS)
-                torch.cuda.synchronize()
             launched = moe_gmm.moe_gmm_skip.launches - before
             check(launched == SLOT_STEPS * moe_layers,
                   f"slot engine launched moe_gmm_skip {launched} times")
@@ -1773,6 +1995,8 @@ REC_SERVE = {
 # softplus-scaled decay, exp, sqrt and the FMA), 4 N^2 for a WKV token
 # and head; peak f32 rate of the CUDA cores (the on-chip guide's table)
 RGLRU_OPS_PER_ELEM = 22
+# recurrentgemma's prompts for the flash timing: one window, two windows
+FLASH_PROMPTS_D256 = (1024, 4096)
 F32_FLOPS_PER_S = 67e12
 
 
@@ -1871,14 +2095,15 @@ def phase_attention256_vs_plain(dev, errs: dict) -> None:
     torch.cuda.synchronize()
     for (name, _), err in worst.items():
         errs[f"{name}_attention"] = max(errs[f"{name}_attention"], err)
-    lib = da.common.library(da.SOURCE, da._declare)
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
     emit("attention256_vs_plain", flash_cases=len(ATTN256_FLASH),
          decode_cases=len(ATTN256_DECODE), dtypes=["float32", "bfloat16"],
          tolerance=ATTN_TOL, max_abs_err={f"{n} {d}": e for (n, d), e in
                                            worst.items()}, match=True,
-         decode_smem_bytes={"G=16 D=256": lib.decode_attention_smem_bytes(
-             16, 256)},
-         flash_smem_bytes={"D=256": 4 * (64 + 2 * 64) * (256 + 4)})
+         decode_smem_bytes={f"G=16 D=256 {n}": da.smem_bytes(16, 256, t)
+                            for n, t in dtypes},
+         flash_smem_bytes={f"D=256 {n}": fa.smem_bytes(256, t)
+                           for n, t in dtypes})
 
 
 def phase_recurrent_jax_anchor(dev, arch: str) -> None:
@@ -2027,11 +2252,12 @@ def _scan_bound(flops: int, nbytes: int) -> tuple[float, str]:
 def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
     """Kernel and plain times of both scans at the full-width prefill
     (T 1,024, bf16 inputs) and decode (B 8, T 1, from a state) shapes,
-    and of both attention kernels at head dim 256 (flash: T 1,024, 16
-    heads over 1, window 2,048; decode: B 8 over 2,048-slot rings with
-    ragged kv_len, cycling through 8 layers' rings, 134 MB, beyond the
-    50 MB L2) with SDPA's time beside them.  No single PyTorch call
-    computes a scan: their library time is None."""
+    and of both attention kernels at head dim 256 (flash: T 1,024 and
+    4,096, 16 heads over 1, window 2,048; decode: B 8 over 2,048-slot
+    rings with ragged kv_len, cycling through 8 layers' rings, 134 MB,
+    beyond the 50 MB L2) with SDPA's event and device times beside them.
+    No single PyTorch call computes a scan: their library time is
+    None."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rgs
@@ -2070,24 +2296,22 @@ def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
             emit(f"time_{name}_{where}", **out[f"{name} {where}"])
 
     r = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
-    t, h, kh, d, window = 1024, 16, 1, 256, 2048
-    q, k, v = r(1, t, h, d), r(1, t, kh, d), r(1, t, kh, d)
-    attn_errs["flash_attention"] = max(attn_errs["flash_attention"], _attn_err(
-        fa.flash_attention(q, k, v, window=window),
-        fa.flash_attention_plain(q, k, v, window=window), bf16,
-        "flash D=256 timing"))
-    flops = 4 * h * d * (t * (t + 1) // 2)
-    nbytes = 2 * t * (2 * h + 2 * kh) * d
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    h, kh, d, window = 16, 1, 256, 2048
+    prompts = {}
+    for t in FLASH_PROMPTS_D256:
+        q, k, v = r(1, t, h, d), r(1, t, kh, d), r(1, t, kh, d)
+        attn_errs["flash_attention"] = max(
+            attn_errs["flash_attention"], _attn_err(
+                fa.flash_attention(q, k, v, window=window),
+                fa.flash_attention_plain(q, k, v, window=window), bf16,
+                f"flash D=256 T={t} timing"))
+        prompts[t] = _time_flash(q, k, v, window, 20, plain=t == 1024)
     out["flash_attention d256"] = dict(
-        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), 20),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, window=window), 3),
-        library_ms=cuda_ms(lambda: _sdpa(q, k, v, is_causal=True), 20),
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        shape=f"prefill B=1 T={t} H={h} KH={kh} D={d} bf16 causal, "
-              f"window {window}", flops=flops, bytes=nbytes)
+        prompts[1024],
+        shape=f"prefill B=1 T=1024 H={h} KH={kh} D={d} bf16 causal, "
+              f"window {window}",
+        prompts={str(t): {k: v for k, v in x.items() if k != "plain_ms"}
+                 for t, x in prompts.items()})
     emit("time_flash_attention_d256", **out["flash_attention d256"])
 
     b, s, layers = 8, 2048, 8
@@ -2100,31 +2324,10 @@ def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
         _attn_err(da.decode_attention(q, kc[0], vc[0], kv_len),
                   da.decode_attention_plain(q, kc[0], vc[0], kv_len), bf16,
                   "decode D=256 timing"))
-    mask = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])[
-        :, None, None, :]
-    state = {"i": 0}
-
-    def cycled(fn):
-        def call():
-            i = state["i"] = (state["i"] + 1) % layers
-            fn(kc[i], vc[i])
-        return call
-
-    n_len = int(kv_len.sum())
-    nbytes = 2 * (2 * n_len * kh * d + 2 * b * h * d) + 4 * b
-    flops = 4 * n_len * h * d
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     out["decode_attention d256"] = dict(
-        ms=cuda_ms(cycled(lambda kk, vv: da.decode_attention(
-            q, kk, vv, kv_len)), 100),
-        plain_ms=cuda_ms(cycled(lambda kk, vv: da.decode_attention_plain(
-            q, kk, vv, kv_len)), 10),
-        library_ms=cuda_ms(cycled(lambda kk, vv: _sdpa(
-            q[:, None], kk, vv, attn_mask=mask)), 100),
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        _time_decode(q, kc, vc, kv_len, 100),
         shape=f"decode B={b} S={s} H={h} KH={kh} D={d} bf16, "
-              f"kv_len {kv_len.tolist()}", flops=flops, bytes=nbytes)
+              f"kv_len {kv_len.tolist()}")
     emit("time_decode_attention_d256", **out["decode_attention d256"])
     return out
 
@@ -2222,6 +2425,7 @@ def main() -> None:
     # the dense-model slice
     attn_errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     phase_attention_vs_plain(dev, attn_errs)
+    phase_attention_accuracy(dev)
     phase_model_jax_anchor(dev)
     phase_model_consistency(dev)
     torch.cuda.empty_cache()
@@ -2271,7 +2475,11 @@ def main() -> None:
         "bound_ms": attn_times[name]["bound_ms"],
         "bound_by": attn_times[name]["bound_by"],
         "library_ms": attn_times[name]["library_ms"],
+        "device_ms": attn_times[name]["device_ms"],
+        "library_device_ms": attn_times[name]["library_device_ms"],
         "match": True, "shape": attn_times[name]["shape"],
+        **({"prompts": attn_times[name]["prompts"]}
+           if "prompts" in attn_times[name] else {}),
         "d256": attn256[name]}
         for name in ("flash_attention", "decode_attention")]
     kernels += rec_kernels

@@ -20,13 +20,15 @@ import tempfile
 
 import torch
 
-__all__ = ["resolve", "build", "library", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["resolve", "build", "library", "ptxas_report", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _LIBS: dict[str, ctypes.CDLL] = {}
+_REPORTS: dict[str, str] = {}
 
 
 def resolve(use_kernel, device: torch.device) -> bool:
@@ -106,12 +108,51 @@ def build(source: str, verbose: bool = False) -> str:
             raise RuntimeError(f"nvcc failed on {source} ({r.returncode}):"
                                f"\n{r.stderr}")
         if verbose:
-            print(r.stdout + r.stderr, end="", flush=True)
+            _REPORTS[source] = r.stdout + r.stderr
+            print(_REPORTS[source], end="", flush=True)
         os.replace(tmp, lib)   # atomic: concurrent builds race safely
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def ptxas_report(source: str) -> dict:
+    """Registers and spill bytes of each kernel of `source`, from the
+    `-Xptxas=-v` report of its last verbose build in this process
+    (empty if it was not built so): {symbol: {"registers", "spill_stores",
+    "spill_loads"}}, the symbols demangled far enough to read (template
+    arguments kept)."""
+    out, name = {}, None
+    for line in _REPORTS.get(source, "").splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return {_readable(k): v for k, v in out.items()}
+
+
+def _readable(symbol: str) -> str:
+    """`..._ZN...18flash_kernel_wgmmaILi256EEEv...` -> `flash_kernel_wgmma<256>`
+    (the kernel's name and its type and integer template arguments)."""
+    for m in re.finditer(r"(\d+)([A-Za-z_])", symbol):
+        n, start = int(m.group(1)), m.start(2)
+        name = symbol[start:start + n]
+        if "kernel" in name and symbol[start + n:start + n + 1] == "I":
+            rest = symbol[start + n + 1:symbol.find("EEv", start + n)]
+            parts = ["float" if k == "f" else "bf16"
+                     for k in re.findall(r"(?:^|I)(f|13__nv_bfloat16)", rest)]
+            parts += re.findall(r"Li(\d+)E", rest + "E")
+            return f"{name}<{', '.join(parts)}>"
+    return symbol
 
 
 def library(source: str, declare) -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 // Loads and stores shared by the attention kernels (flash_attention.cu,
 // decode_attention.cu) and the expert FFN (moe_gmm.cu): 16-byte reads of
 // bf16 or f32 rows of a strided (..., rows, ..., D) tensor into an f32 tile
-// in shared memory, single-element reads for ragged edges, and 4-wide or
-// single stores of f32 results in the tensor's own type.
+// in shared memory, single-element reads for ragged edges, 4-wide or
+// single stores of f32 results in the tensor's own type, and the packing
+// of f32 pairs into the bf16 operand registers of the tensor cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,6 +16,13 @@ constexpr int kPad = 4;             // tile row padding (floats): rows stay
                                     // 16-byte aligned and land on
                                     // different banks
 constexpr unsigned kFull = 0xffffffffu;
+
+// Two f32 values rounded to one bf16 pair (lo in the low half), as the
+// tensor cores' 16-bit operand registers hold them.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
 
 template <typename T>
 struct IO;

@@ -10,11 +10,15 @@ JAX models run) and the Pallas kernel
   `q_offset`, `kv_len`, `kv_start` and `window` masks; q is scaled in its
   own dtype, then cast to f32, as there.  It runs on any device.
 * the CUDA kernel `csrc/flash_attention.cu` for `sm_90a` (causal or not,
-  sliding window, GQA, any sequence length, head dim 64/128/256,
-  bf16/f32) scales q in f32 as the Pallas kernel does; with bf16 inputs
-  and head dim 128 that rounds differently from the plain version (the
-  scales of dims 64 and 256 are powers of two).  Built with `nvcc` at
-  first use, bound with ctypes.
+  sliding window, GQA, any sequence length, head dim 64/128/256): bf16
+  on the tensor cores (`wgmma` on TMA-fed tiles, the scores scaled by
+  dh^-0.5 in f32, P split into bf16 hi + lo parts for P V), f32 on the
+  CUDA cores (q scaled in f32, as the Pallas kernel does).  With bf16 inputs and head
+  dim 128 either rounds differently from the plain version, which scales
+  q in bf16 (the scales of dims 64 and 256 are powers of two).  Built
+  with `nvcc` at first use, bound with ctypes; the TMA descriptors are
+  encoded in the C entry point through the driver entry point the CUDA
+  runtime hands out, so the build needs nothing but `nvcc`.
 
 `flash_attention` owns the choice: CUDA tensors launch the kernel (and
 count it in `flash_attention.launches`) or raise, CPU tensors run the
@@ -29,7 +33,8 @@ import torch
 
 from repro_torch.kernels import common
 
-__all__ = ["flash_attention", "flash_attention_plain", "build", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_plain", "smem_bytes", "build",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -105,6 +110,16 @@ def _declare(lib) -> None:
         [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
         + [ci, ci, ctypes.c_float, vp])
     lib.flash_attention_launch.restype = ci
+    lib.flash_attention_smem_bytes.argtypes = [ci, ci]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+
+
+def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory one CTA of the kernel takes at `head_dim`
+    for `dtype` (bf16: q and two stages of k and v tiles; f32: the
+    CUDA-core kernel's f32 tiles), as the source computes it."""
+    lib = common.library(SOURCE, _declare)
+    return lib.flash_attention_smem_bytes(head_dim, _DTYPES[dtype])
 
 
 def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:

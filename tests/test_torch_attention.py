@@ -170,3 +170,91 @@ def test_decode_wrapper_runs_plain_on_cpu_and_refuses_the_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         tda.decode_attention(q, kc, vc, lens, use_kernel="kernel")
     assert tda.decode_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel's split-KV arithmetic
+# ---------------------------------------------------------------------------
+
+def _edge_lens(s, chunk, b, first_split_only=False):
+    """kv_len at and beside the tile (64) and split edges, cycled to b
+    rows; with `first_split_only`, only lengths inside the first split
+    (every other split empty)."""
+    edges = [0, 1, 63, 64, 65, 127, 128, 129, chunk - 1, chunk, chunk + 1,
+             2 * chunk - 1, 2 * chunk, 2 * chunk + 1, s - 1, s]
+    top = chunk if first_split_only else s
+    edges = sorted({e for e in edges if 0 <= e <= top})
+    return np.array([edges[i % len(edges)] for i in range(b)], np.int32)
+
+
+@pytest.mark.parametrize("b,s,h,kh,dh,dtype,first_only", [
+    (1, 512, 4, 1, 64, "f32", False),     # B x KH 1: 8 one-tile splits
+    (4, 512, 8, 2, 64, "bf16", False),    # B x KH 8
+    (8, 1024, 16, 1, 64, "f32", False),   # recurrentgemma's B 8 x KH 1
+    (8, 1024, 16, 1, 64, "bf16", True),   # ... every split but one empty
+    (8, 512, 32, 8, 64, "bf16", False),   # granite's B 8 x KH 8 = 64
+    (16, 512, 8, 4, 64, "f32", True),     # B x KH 64, one-tile splits
+])
+def test_decode_split_plain_matches_pallas_at_split_edges(b, s, h, kh, dh,
+                                                          dtype, first_only):
+    """The decode kernel's split-and-merge arithmetic in plain PyTorch
+    (`split_plan`'s ranges, a partial (m, l, acc) each, the merge) against
+    the Pallas kernel in interpret mode and the plain version, with
+    kv_len at 64 k, 64 k +- 1 and the split edges; kv_len 0 gives exact
+    zeros, as the Pallas kernel does."""
+    splits, chunk = tda.split_plan(b, kh, s)
+    lens = _edge_lens(s, chunk, b, first_only)
+    (jq, q), (jk, kc), (jv, vc) = _inputs(
+        9, [(b, h, dh), (b, s, kh, dh), (b, s, kh, dh)], dtype)
+    want = ops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_kv=128)
+    got = tda.decode_attention_split_plain(q, kc, vc, torch.from_numpy(lens))
+    _close(got, want, dtype)
+    _close(got, tda.decode_attention_plain(q, kc, vc, torch.from_numpy(lens))
+           .float(), dtype)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any(), "kv_len == 0 gives zeros"
+
+
+@pytest.mark.parametrize("s,lens", [(100, [1, 37, 100]), (33, [33, 5, 0])])
+def test_decode_split_plain_ragged_cache_matches_ref(s, lens):
+    """Cache lengths that are no multiple of a tile (Pallas asserts)."""
+    b = len(lens)
+    (jq, q), (jk, kc), (jv, vc) = _inputs(
+        10, [(b, 8, 64), (b, s, 2, 64), (b, s, 2, 64)], "f32")
+    lens = np.array(lens, np.int32)
+    want = np.array(ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)))
+    want[lens == 0] = 0.0          # the Pallas kernel's (and the port's) 0
+    _close(tda.decode_attention_split_plain(q, kc, vc,
+                                            torch.from_numpy(lens)),
+           want, "f32")
+
+
+def test_split_plan_reads_the_shapes_only(monkeypatch):
+    """The split rule takes (B, KH, S) as ints, never a tensor: the host
+    never reads kv_len (a decode step would synchronise on it).  Its
+    splits cover the cache in whole 64-position tiles, the last one
+    non-empty, with at least two CTAs an SM where the cache allows."""
+    assert tda.split_plan(8, 1, 2048) == (32, 64)     # recurrentgemma
+    assert tda.split_plan(8, 8, 2048) == (6, 384)     # granite
+    for b, kh, s in [(1, 1, 1), (1, 1, 100), (64, 1, 4096), (3, 7, 333),
+                     (16, 4, 1000), (1, 1, 1 << 16)]:
+        splits, chunk = tda.split_plan(b, kh, s)
+        assert chunk % 64 == 0 and (splits - 1) * chunk < s <= splits * chunk
+        assert b * kh * splits >= min(2 * 132, b * kh * -(-s // 64))
+    with pytest.raises(TypeError, match="int shapes"):
+        tda.split_plan(8, 1, torch.tensor(2048))
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a tensor value was read on the host")
+
+    for name in ("item", "tolist", "numpy", "__int__", "__index__",
+                 "__bool__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    (_, q), (_, kc), (_, vc) = _inputs(
+        11, [(4, 8, 64), (4, 300, 2, 64), (4, 300, 2, 64)], "f32")
+    kv_len = torch.full((4,), 77, dtype=torch.int32)
+    splits, chunk, part = tda.scratch(q, 300, 2)
+    assert (splits, chunk) == tda.split_plan(4, 2, 300)
+    assert part.numel() == 4 * 8 * splits * (64 + 2)
+    tda.decode_attention_split_plain(q, kc, vc, kv_len)

@@ -216,6 +216,115 @@ def test_decode_kernel_matches_plain(dev, dtype, b, s, h, kh, dh):
     _assert_close(got, da.decode_attention_plain(q, kc, vc, kv_len), dtype)
 
 
+def test_flash_kernel_reads_strided_views_bf16(dev):
+    """The bf16 route's TMA descriptors over views of one fused (B, T, H +
+    2 KH, D) projection, at head dims 64 and 128."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for dh, t in ((64, 77), (128, 300)):
+        fused = _randn(gen, (2, t, 12, dh), torch.bfloat16, dev)
+        q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+        _assert_close(fa.flash_attention(q, k, v, window=50 if dh == 64
+                                         else 0),
+                      fa.flash_attention_plain(q, k, v, window=50 if dh == 64
+                                               else 0), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,window", [(4096, 2048), (1000, 0)])
+def test_flash_kernel_long_prompts_at_head_dim_256(dev, dtype, t, window):
+    """recurrentgemma's shape: a prompt of two 2,048-token windows (key
+    tiles older than the window skipped), 16 query heads over 1."""
+    gen = torch.Generator(device=dev).manual_seed(t + window)
+    q = _randn(gen, (1, t, 16, 256), dtype, dev)
+    k = _randn(gen, (1, t, 1, 256), dtype, dev)
+    v = _randn(gen, (1, t, 1, 256), dtype, dev)
+    _assert_close(fa.flash_attention(q, k, v, window=window),
+                  fa.flash_attention_plain(q, k, v, window=window), dtype)
+
+
+# every query-heads-per-kv-head ratio of the zoo, at its head dim
+ZOO_GROUPS = [(1, 64), (3, 128), (4, 64), (5, 128), (7, 128), (8, 128),
+              (16, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,dh", ZOO_GROUPS)
+def test_attention_kernels_take_every_group_of_the_zoo(dev, dtype, g, dh):
+    gen = torch.Generator(device=dev).manual_seed(g * 1000 + dh)
+    kh = 2
+    q = _randn(gen, (2, 333, g * kh, dh), dtype, dev)
+    k = _randn(gen, (2, 333, kh, dh), dtype, dev)
+    v = _randn(gen, (2, 333, kh, dh), dtype, dev)
+    _assert_close(fa.flash_attention(q, k, v),
+                  fa.flash_attention_plain(q, k, v), dtype)
+    kv_len = torch.tensor([333, 129], dtype=torch.int32, device=dev)
+    _assert_close(da.decode_attention(q[:, 0], k, v, kv_len),
+                  da.decode_attention_plain(q[:, 0], k, v, kv_len), dtype)
+
+
+def _split_edges(s, chunk, b):
+    """kv_len at and beside the tile and split edges, cycled to b rows."""
+    edges = [0, 1, 63, 64, 65, 127, 128, 129, chunk - 1, chunk, chunk + 1,
+             2 * chunk - 1, 2 * chunk, 2 * chunk + 1, s - 1, s]
+    edges = [e for e in edges if 0 <= e <= s]
+    return [edges[i % len(edges)] for i in range(b)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kh,g,s,dh", [
+    (1, 1, 16, 2048, 256), (2, 1, 4, 700, 64), (8, 1, 16, 2048, 256),
+    (4, 4, 4, 2048, 64), (8, 8, 4, 2048, 64), (16, 4, 7, 1000, 128),
+    (8, 8, 5, 4096, 128)])
+def test_decode_kernel_at_split_edges(dev, dtype, b, kh, g, s, dh):
+    """kv_len at 64 k, 64 k +- 1 and the split edges (every split but the
+    first empty, or but the first two), B x KH from 1 to 64: the kernel
+    against the plain version and the plain form of its split-and-merge
+    arithmetic; kv_len 0 exact zeros."""
+    splits, chunk = da.split_plan(b, kh, s)
+    gen = torch.Generator(device=dev).manual_seed(b * kh + s)
+    q = _randn(gen, (b, kh * g, dh), dtype, dev)
+    kc = _randn(gen, (b, s, kh, dh), dtype, dev)
+    vc = _randn(gen, (b, s, kh, dh), dtype, dev)
+    lens = _split_edges(s, chunk, b)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = da.decode_attention(q, kc, vc, kv_len)
+    _assert_close(got, da.decode_attention_plain(q, kc, vc, kv_len), dtype)
+    _assert_close(got, da.decode_attention_split_plain(q, kc, vc, kv_len),
+                  dtype)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any(), "kv_len == 0 gives zeros"
+
+
+def test_attention_wrappers_never_synchronise(dev):
+    """Neither wrapper reads a device value on the host: under CUDA's
+    sync debug mode "error" a synchronising call would raise."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _randn(gen, (8, 16, 256), torch.bfloat16, dev)
+    kc = _randn(gen, (8, 2048, 1, 256), torch.bfloat16, dev)
+    kv_len = torch.full((8,), 999, dtype=torch.int32, device=dev)
+    x = _randn(gen, (1, 300, 8, 64), torch.bfloat16, dev)
+    da.decode_attention(q, kc, kc, kv_len)        # builds, loads
+    fa.flash_attention(x, x[:, :, :2], x[:, :, :2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da.decode_attention(q, kc, kc, kv_len)
+        fa.flash_attention(x, x[:, :, :2], x[:, :, :2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_attention_kernels_report_their_shared_memory(dev):
+    assert fa.smem_bytes(256, torch.bfloat16) == \
+        1024 + 2 * 128 * 256 + 2 * 2 * 2 * 64 * 256 + 8 * 7
+    assert fa.smem_bytes(256, torch.float32) == 4 * (64 + 2 * 64) * 260
+    assert da.smem_bytes(16, 256, torch.bfloat16) == \
+        2 * (16 + 4 * 64) * 264 + 2 * 4 * 4 * 16
+    assert da.smem_bytes(16, 256, torch.float32) <= 232_448
+
+
 def test_model_on_card_matches_plain_and_launches_both_kernels(dev):
     """A two-layer granite at smoke width but head dim 64: prefill and
     three decode steps through the kernels equal the plain path."""
