@@ -539,16 +539,18 @@ def device_ms(fn, reps: int, sessions: int = 3) -> tuple[float | None,
                                                          float]:
     """Device milliseconds of one call of `fn` under `torch.profiler`, and
     the share of its kernels' launches the profiler kept a record of.
-    `reps` calls are profiled after one warm-up; each kernel `fn`
-    launches once a call (the flash kernel; decode's split and merge;
-    SDPA's kernel and its memset) counts at its mean over the records
-    kept, so a record the profiler lost shortens nothing.  A session that
-    lost records is tried again, up to `sessions` in all, and the one
-    that kept most is read; where none kept a record the device time is
-    None (not measured) and the share 0.  `cuda_ms` times the calls back
-    to back and so also sees the host between launches (a wrapper's
-    ctypes call and checks, ~30-60 us); this sees the card's work
-    alone."""
+    `reps` calls are profiled after one warm-up; each kernel counts at
+    its mean over the records kept times the launches it makes a call
+    (once for the flash kernel, decode's split and merge, SDPA's kernel
+    and its memset, the grouped FFN's two stages; twice for the GEMM
+    that three `torch.bmm` run on x @ wg and x @ wi alike, read as the
+    nearest whole number of records a call), so a record the profiler
+    lost shortens nothing.  A session that lost records is tried again,
+    up to `sessions` in all, and the one that kept most is read; where
+    none kept a record the device time is None (not measured) and the
+    share 0.  `cuda_ms` times the calls back to back and so also sees
+    the host between launches (a wrapper's ctypes call and checks, ~30-60
+    us); this sees the card's work alone."""
     fn()
     torch.cuda.synchronize()
     best = (None, 0.0)
@@ -556,11 +558,13 @@ def device_ms(fn, reps: int, sessions: int = 3) -> tuple[float | None,
         with profiled() as prof:
             for _ in range(reps):
                 fn()
-        kernels = [(evt.count, _device_us(evt)) for evt in cuda_rows(prof)]
-        if kernels and sum(us for _, us in kernels) > 0:
-            kept = min(1.0, min(n for n, _ in kernels) / reps)
+        kernels = [(evt.count, max(1, round(evt.count / reps)),
+                    _device_us(evt)) for evt in cuda_rows(prof)]
+        if kernels and sum(us for _, _, us in kernels) > 0:
+            kept = min(1.0, min(n / (per * reps) for n, per, _ in kernels))
             if kept > best[1]:
-                best = (sum(us / n for n, us in kernels) / 1e3, kept)
+                best = (sum(us / n * per for n, per, us in kernels) / 1e3,
+                        kept)
             if kept == 1.0:
                 break
     return best
@@ -1707,15 +1711,17 @@ def phase_moe_jax_anchor(dev) -> None:
 def phase_moe_model_consistency(dev, cfg, params) -> None:
     """arctic-480b at full width, 2 layers, 128 experts, bf16, random
     weights: one prompt and 8 decode steps through the kernels against
-    the plain path; logits within DEEP_BF16_REL, and the share of routed
-    expert ids the two paths agree on.  (No prefill-vs-full-sequence
-    check here: at capacity 1.25 a prefill of T tokens and a decode step
-    of B tokens have other capacities, so other drops.)"""
+    the plain path; logits within DEEP_BF16_REL, the share of routed
+    expert ids the two paths agree on, and where they first differ (a
+    further reading: the gate is the logits').  (No
+    prefill-vs-full-sequence check here: at capacity 1.25 a prefill of T
+    tokens and a decode step of B tokens have other capacities, so other
+    drops.)"""
     from repro_torch.models import moe, transformer
     b, t0, steps = 1, 300, 8
     tokens = np.random.default_rng(8).integers(
         0, cfg.vocab, (b, t0 + steps)).astype(np.int32)
-    out, routes = {}, {}
+    out, routes, calls_by_mode = {}, {}, {}
     t_start = time.perf_counter()
     for mode in ("auto", "plain"):
         with spy_calls(moe, "route") as calls:
@@ -1732,20 +1738,36 @@ def phase_moe_model_consistency(dev, cfg, params) -> None:
                     cache, use_kernel=mode)
                 rows.append(logits)
         out[mode] = torch.cat(rows, 1)
-        routes[mode] = torch.cat([ids.sort(-1).values for ids, _ in calls])
+        calls_by_mode[mode] = [ids.sort(-1).values for ids, _ in calls]
+        routes[mode] = torch.cat(calls_by_mode[mode])
         del cache
     torch.cuda.synchronize()
     rel = _rel(out["auto"], out["plain"])
-    check(rel <= DEEP_BF16_REL, f"moe_model_consistency: relative L2 {rel} "
-                                f"> {DEEP_BF16_REL}")
     agree = float((routes["auto"] == routes["plain"]).float().mean())
+    first = first_route_difference(calls_by_mode, sum(cfg.moe_layer_mask()))
+    check(rel <= DEEP_BF16_REL, f"moe_model_consistency: relative L2 {rel} "
+                                f"> {DEEP_BF16_REL} (routed ids agree "
+                                f"{agree}; first differ at {first})")
     emit("moe_model_consistency", arch=cfg.name, layers=cfg.num_layers,
          experts=cfg.num_experts, dtype="bfloat16", batch=b, prefill=t0,
          decode_steps=steps, rel_l2_kernel_vs_plain=rel,
          tolerance=DEEP_BF16_REL, routed_ids_agree=agree,
+         first_route_difference=first,
          argmax_agree=float((out["auto"].argmax(-1) ==
                              out["plain"].argmax(-1)).float().mean()),
          seconds=round(time.perf_counter() - t_start, 3))
+
+
+def first_route_difference(calls: dict, moe_layers: int) -> dict | None:
+    """Where the kernel path's routed ids first leave the plain path's:
+    the route call (MoE layer, forward step: 0 the prefill) and the
+    token within it; None where they never do."""
+    for n, (a, p) in enumerate(zip(calls["auto"], calls["plain"])):
+        bad = (a != p).any(-1).nonzero()
+        if bad.numel():
+            return {"moe_layer": n % moe_layers, "step": n // moe_layers,
+                    "token": int(bad[0, 0])}
+    return None
 
 
 @contextlib.contextmanager
@@ -1853,60 +1875,152 @@ def _gmm_bound(live: int, e: int, c: int, d: int, f: int, elem: int,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+# moe_gmm's capacities on arctic's path: prompts of 100-1,500 tokens give
+# C 8-32 (models/moe.py rounds it up to a multiple of 8); moe_gmm_skip's
+# live experts at a batch-8 decode step: 16 at most, 4 when the tokens
+# share experts
+TIME_CAPACITIES = (8, 16, 24, 32)
+TIME_LIVE = (DECODE_LIVE, 4)
+
+
+def _short_kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its namespaces and
+    arguments: `tc::moe_gmm_kernel_mma<3, 0>`, `nvjet_tst_128x8_...`."""
+    name = key.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i].strip()[:80]
+    return name[:80]
+
+
+def kernel_breakdown(fn, reps: int) -> dict:
+    """Device milliseconds a call of `fn` spends in each kernel (the mean
+    over one profiled session's records times the launches a call, as
+    `device_ms` counts them), by short kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for _ in range(reps):
+            fn()
+    out = {}
+    for evt in cuda_rows(prof):
+        per = max(1, round(evt.count / reps))
+        name = _short_kernel_name(evt.key)
+        out[name] = out.get(name, 0.0) + _device_us(evt) / evt.count \
+            * per / 1e3
+    return out
+
+
+def _time_gmm(kernel, lib, reps: int, split: bool = False) -> dict:
+    """Event and profiler device times of a grouped-FFN call and of the
+    library yardstick on the same inputs; with `split`, also each one's
+    device time by kernel (the kernel's two stages, the library's
+    GEMMs)."""
+    dev_ms, kept = device_ms(kernel, reps)
+    lib_dev_ms, lib_kept = device_ms(lib, reps)
+    out = dict(ms=cuda_ms(kernel, reps), device_ms=dev_ms,
+               library_ms=cuda_ms(lib, reps), library_device_ms=lib_dev_ms,
+               profiler_records_kept=[kept, lib_kept])
+    if split:
+        out["device_ms_by_kernel"] = kernel_breakdown(kernel, reps)
+        out["library_device_ms_by_kernel"] = kernel_breakdown(lib, reps)
+    return out
+
+
 def phase_time_moe(dev, errs: dict, layer0) -> dict:
     """Kernel, plain and library times of both entry points at the path's
     shapes on the model's layer-0 experts (bf16): `moe_gmm` at a prefill
-    (E 128, C 24, every expert live), `moe_gmm_skip` at a batch-8 decode
-    step (E 128, C 8, 16 live; the library call over the live experts
-    only, gathered before the timing).  The weights (26.8 GB, 3.3 GB
-    live) are far beyond the 50 MB L2."""
+    (E 128, every expert live) at each capacity of TIME_CAPACITIES, and
+    `moe_gmm_skip` at a batch-8 decode step (E 128, C 8) with 16 and 4
+    live experts (the library call over the live experts only, gathered
+    before the timing).  Each time twice: CUDA events over back-to-back
+    calls (`ms`) and the profiler's device time (`device_ms`), beside
+    three `torch.bmm` (`library_ms`, `library_device_ms`) and the bound;
+    at C 24 and for the skip also each one's device time by kernel (the
+    two stages against the library's GEMMs).  The plain version is timed
+    at C 24 and at 16 live.  The weights
+    (26.8 GB, 3.3 GB for 16 live) are far beyond the 50 MB L2.  Before
+    the times, one line gives each call's route and its max abs error
+    against the plain version, and the share of its bf16 outputs that
+    differ from the plain version's at all."""
     from repro_torch.kernels import moe_gmm as gmm
     wg, wi, wo = layer0
     e, d, f = wg.shape
     dt = wg.dtype
     elem = wg.element_size()
     gen = torch.Generator(device=dev).manual_seed(5)
-    out = {}
+    out, accuracy, caps, lives = {}, {}, {}, {}
 
-    x = torch.randn((e, PREFILL_C, d), generator=gen, device=dev).to(dt)
-    errs["moe_gmm"] = max(errs["moe_gmm"], _gmm_err(
-        gmm.moe_gmm(x, wg, wi, wo), gmm.moe_gmm_plain(x, wg, wi, wo), dt,
-        "moe_gmm timing"))
-    ms = cuda_ms(lambda: gmm.moe_gmm(x, wg, wi, wo), 5)
-    plain_ms = cuda_ms(lambda: gmm.moe_gmm_plain(x, wg, wi, wo), 1)
-    lib_ms = cuda_ms(lambda: _bmm_ffn(x, wg, wi, wo), 5)
-    bound, by, flops, nbytes = _gmm_bound(e, e, PREFILL_C, d, f, elem, False)
-    out["moe_gmm"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-        bound_by=by, flops=flops, bytes=nbytes,
-        shape=f"prefill E={e} C={PREFILL_C} D={d} F={f} bf16, all live")
+    def routed(fn, entry):
+        """fn()'s output and the route its one launch of `entry` took."""
+        before = dict(entry.routes)
+        got = fn()
+        return got, next(r for r, n in entry.routes.items()
+                         if n != before[r])
+
+    for c in TIME_CAPACITIES:
+        x = torch.randn((e, c, d), generator=gen, device=dev).to(dt)
+        got, route = routed(lambda: gmm.moe_gmm(x, wg, wi, wo), gmm.moe_gmm)
+        want = gmm.moe_gmm_plain(x, wg, wi, wo)
+        err = _gmm_err(got, want, dt, f"moe_gmm timing C={c}")
+        errs["moe_gmm"] = max(errs["moe_gmm"], err)
+        accuracy[f"moe_gmm C={c}"] = {
+            "route": route, "max_abs_err": err,
+            "differing_share": float((got != want).float().mean())}
+        bound, by, flops, nbytes = _gmm_bound(e, e, c, d, f, elem, False)
+        caps[c] = dict(
+            _time_gmm(lambda: gmm.moe_gmm(x, wg, wi, wo),
+                      lambda: _bmm_ffn(x, wg, wi, wo), 5,
+                      split=c == PREFILL_C),
+            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+            shape=f"prefill E={e} C={c} D={d} F={f} bf16, all live")
+        if c == PREFILL_C:
+            caps[c]["plain_ms"] = cuda_ms(
+                lambda: gmm.moe_gmm_plain(x, wg, wi, wo), 1)
+        del x, got, want
+
+    for live in TIME_LIVE:
+        x, counts = _decode_buffers(gen, e, DECODE_C, d, live, dt, dev)
+        got, route = routed(lambda: gmm.moe_gmm_skip(x, wg, wi, wo, counts),
+                            gmm.moe_gmm_skip)
+        want = gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts)
+        err = _gmm_err(got, want, dt, f"moe_gmm_skip timing {live} live")
+        errs["moe_gmm_skip"] = max(errs["moe_gmm_skip"], err)
+        accuracy[f"moe_gmm_skip C={DECODE_C} {live} live"] = {
+            "route": route, "max_abs_err": err,
+            "differing_share": float((got != want).float().mean())}
+        ids = torch.nonzero(counts > 0)[:, 0]
+        gathered = [t[ids] for t in (x, wg, wi, wo)]
+        n_live = int(ids.numel())
+        bound, by, flops, nbytes = _gmm_bound(n_live, e, DECODE_C, d, f,
+                                              elem, True)
+        lives[live] = dict(
+            _time_gmm(lambda: gmm.moe_gmm_skip(x, wg, wi, wo, counts),
+                      lambda: _bmm_ffn(*gathered), 20, split=True),
+            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+            shape=f"decode E={e} C={DECODE_C} D={d} F={f} bf16, "
+                  f"{n_live} live, counts {counts[ids].tolist()}")
+        if live == DECODE_LIVE:
+            lives[live]["plain_ms"] = cuda_ms(
+                lambda: gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts), 3)
+        del gathered, x, got, want
+    emit("moe_gmm_accuracy", tolerance=GMM_TOL, calls=accuracy)
+
+    out["moe_gmm"] = dict(caps[PREFILL_C], capacities={
+        str(c): {k: v for k, v in t.items() if k != "plain_ms"}
+        for c, t in caps.items()})
     emit("time_moe_gmm", **out["moe_gmm"])
-
-    x, counts = _decode_buffers(gen, e, DECODE_C, d, DECODE_LIVE, dt, dev)
-    errs["moe_gmm_skip"] = max(errs["moe_gmm_skip"], _gmm_err(
-        gmm.moe_gmm_skip(x, wg, wi, wo, counts),
-        gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts), dt,
-        "moe_gmm_skip timing"))
-    ms = cuda_ms(lambda: gmm.moe_gmm_skip(x, wg, wi, wo, counts), 20)
-    plain_ms = cuda_ms(lambda: gmm.moe_gmm_skip_plain(x, wg, wi, wo,
-                                                      counts), 3)
-    live = torch.nonzero(counts > 0)[:, 0]
-    gathered = [t[live] for t in (x, wg, wi, wo)]
-    lib_ms = cuda_ms(lambda: _bmm_ffn(*gathered), 20)
-    del gathered
-    n_live = int(live.numel())
-    bound, by, flops, nbytes = _gmm_bound(n_live, e, DECODE_C, d, f, elem,
-                                          True)
-    out["moe_gmm_skip"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-        bound_by=by, flops=flops, bytes=nbytes,
-        shape=f"decode E={e} C={DECODE_C} D={d} F={f} bf16, {n_live} live, "
-              f"counts {counts[live].tolist()}")
+    out["moe_gmm_skip"] = dict(lives[DECODE_LIVE], live={
+        str(n): {k: v for k, v in t.items() if k != "plain_ms"}
+        for n, t in lives.items()})
     emit("time_moe_gmm_skip", **out["moe_gmm_skip"])
     return out
 
 
-def phase_moe_serve(dev) -> dict:
+def phase_moe_serve(dev) -> tuple[dict, dict]:
     """The slice's main path: `repro_torch.launch.serve` serving
     arctic-480b at full width (2 layers, all 128 experts), bf16: 8
     requests by continuous batching (`moe_gmm` at each prefill,
@@ -1923,8 +2037,12 @@ def phase_moe_serve(dev) -> dict:
                 "decode_attention": da.decode_attention}
     for fn in wrappers.values():
         fn.launches = 0
+    for fn in (gmm.moe_gmm, gmm.moe_gmm_skip):
+        fn.routes = dict.fromkeys(fn.routes, 0)
     report = serve.serve(ARCTIC_2L, device=dev, **MOE_SERVE)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    routes = {name: dict(wrappers[name].routes)
+              for name in ("moe_gmm", "moe_gmm_skip")}
     slots = report["expert_slots"]
     n = MOE_SERVE["num_requests"]
     check(report["finished"] == n, f"served {report['finished']} of {n}")
@@ -1939,14 +2057,18 @@ def phase_moe_serve(dev) -> dict:
     check(launches["moe_gmm_skip"] == want_skip,
           f"moe_gmm_skip launched {launches['moe_gmm_skip']}, not "
           f"{want_skip}")
+    for name, by_route in routes.items():
+        check(by_route == {"mma": launches[name], "fma": 0},
+              f"{name} took routes {by_route} on the serving path, not the "
+              f"tensor cores alone")
     check(slots["fill_seconds"] > 0, "the expert slots filled nothing")
     emit("moe_serve", arch=cfg.name, layers=layers,
          experts=cfg.num_experts, top_k=cfg.top_k,
          capacity_factor=cfg.capacity_factor, dtype=cfg.dtype,
          **{k: v for k, v in MOE_SERVE.items() if k != "prompt_len"},
          prompt_len=list(MOE_SERVE["prompt_len"]), launches=launches,
-         **report)
-    return launches
+         routes=routes, **report)
+    return launches, routes
 
 
 # ---------------------------------------------------------------------------
@@ -2452,7 +2574,7 @@ def main() -> None:
     profile_serving(dev, cfg, params, "serve_profile_moe")
     del params, layer0
     torch.cuda.empty_cache()
-    moe_launches = phase_moe_serve(dev)       # its main path, counted
+    moe_launches, moe_routes = phase_moe_serve(dev)   # its main path
     kernels += [{
         "name": name, "route": "cuda", "source": MOE_SOURCE,
         "replaces": MOE_REPLACES[name], "launches": moe_launches[name],
@@ -2461,7 +2583,12 @@ def main() -> None:
         "bound_ms": moe_times[name]["bound_ms"],
         "bound_by": moe_times[name]["bound_by"],
         "library_ms": moe_times[name]["library_ms"],
-        "match": True, "shape": moe_times[name]["shape"]}
+        "device_ms": moe_times[name]["device_ms"],
+        "library_device_ms": moe_times[name]["library_device_ms"],
+        "match": True, "shape": moe_times[name]["shape"],
+        "routes": moe_routes[name],
+        **{k: moe_times[name][k] for k in ("capacities", "live")
+           if k in moe_times[name]}}
         for name in ("moe_gmm", "moe_gmm_skip")]
     torch.cuda.empty_cache()          # arctic's weights are gone
 

@@ -8,10 +8,13 @@
 // (window > 0).  Positions of q and k both start at 0.  Masked scores are
 // -1e30 and the softmax is online over key tiles with f32 running (m, l,
 // acc) per row, as in the Pallas kernel; out = acc / max(l, 1e-30), cast
-// to q's type.  Key tiles wholly above the causal diagonal or wholly older
-// than the window are never loaded; the ragged tail of q and k (T need not
-// be a multiple of a tile) is masked, not asserted away as the Pallas
-// kernel does (:89).
+// to q's type.  A row that sees no key (with a window, when Tq >= Tk +
+// window) gives exact 0 in both routes, as the decode kernel does for
+// kv_len 0 (the plain version, like JAX's block scan, gives a mean over
+// its zero-padded blocks there).  Key tiles wholly above the causal
+// diagonal or wholly older than the window are never loaded; the ragged
+// tail of q and k (T need not be a multiple of a tile) is masked, not
+// asserted away as the Pallas kernel does (:89).
 //
 // What bounds it on this card: operations.  Causal prefill does about
 // 2 B H T^2 D flops (4 per visible (q, k) pair and column) on 2 B T (H +
@@ -172,10 +175,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Params<T> p) {
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
     const float m_new = fmaxf(m_i, mx);
     const float corr = expf(m_i - m_new);
+    // a row that has seen no key yet (m still -1e30) takes P = 0, as the
+    // bf16 route does: a row that sees no key at all gives 0
+    const bool none = m_new == kNegInf;
     float ls = 0.f;
 #pragma unroll
     for (int jj = 0; jj < kKeys; ++jj) {
-      s[jj] = expf(s[jj] - m_new);
+      s[jj] = none ? 0.f : expf(s[jj] - m_new);
       ls += s[jj];
     }
     l_i = l_i * corr + ls;

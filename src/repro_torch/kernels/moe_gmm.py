@@ -17,14 +17,22 @@ its `wi` there).  `moe_gmm_skip` takes `counts` (E,) int32: experts with
   f32 copies of one expert's weights are all that is held at once), any
   device.
 * the CUDA kernel `csrc/moe_gmm.cu` for `sm_90a` (bf16/f32, any C, D, F):
-  two launches, one CTA per (64-column tile, expert) holding all of the
-  expert's rows.  Built with `nvcc` at first use, bound with ctypes.
+  two launches, each work item a column tile of one expert holding all
+  of the expert's rows.  Two routes, chosen in its C entry point from
+  the dtype, the shapes and the alignment alone: "mma" (bf16 with D and
+  F multiples of 8 and 16-byte aligned operands, as on every model path:
+  128-column items whose bf16 weight tiles stream through a cp.async
+  ring in shared memory into `mma.sync` on the tensor cores) and "fma"
+  (f32, or bf16 rows that are not 16-byte aligned: 64-column tiles, f32
+  FMAs on the CUDA cores).  Built with `nvcc` at first use, bound with
+  ctypes.
 
 `moe_gmm` and `moe_gmm_skip` own the choice: CUDA tensors launch the
-kernel (and count it in the wrapper's `.launches`) or raise, CPU tensors
-run the plain version; `use_kernel="plain"` forces the plain version
-anywhere.  The Pallas kernels' block sizes are TPU tiling knobs with no
-counterpart here.
+kernel (and count it in the wrapper's `.launches`, and the route it took
+in `.routes`, e.g. `moe_gmm.routes == {"mma": 16, "fma": 0}`) or raise,
+CPU tensors run the plain version; `use_kernel="plain"` forces the plain
+version anywhere.  The Pallas kernels' block sizes are TPU tiling knobs
+with no counterpart here.
 """
 from __future__ import annotations
 
@@ -89,7 +97,8 @@ def build(verbose: bool = False) -> str:
 
 def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.moe_gmm_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.moe_gmm_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp] + [
+        ctypes.POINTER(ci)]
     lib.moe_gmm_launch.restype = ci
 
 
@@ -122,9 +131,12 @@ def _check(x, wg, wi, wo, counts, gated: bool) -> None:
                          f"on {x.device}")
 
 
-def _launch(x, wg, wi, wo, counts, gated: bool) -> torch.Tensor:
+ROUTES = ("mma", "fma")
+
+
+def _launch(x, wg, wi, wo, counts, gated: bool) -> tuple[torch.Tensor, str]:
     """Check the operands, allocate h and the output and launch both
-    stages on the current stream."""
+    stages on the current stream; the output and the route taken."""
     _check(x, wg, wi, wo, counts, gated)
     e, c, d = x.shape
     f = wg.shape[-1]
@@ -132,14 +144,15 @@ def _launch(x, wg, wi, wo, counts, gated: bool) -> torch.Tensor:
     h = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    route = ctypes.c_int(0)
     err = lib.moe_gmm_launch(
         x.data_ptr(), wg.data_ptr(), wi.data_ptr() if gated else None,
         wo.data_ptr(), counts.data_ptr() if counts is not None else None,
         h.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], e, c, d, f,
-        int(gated), stream)
+        int(gated), stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {err}")
-    return out
+    return out, "mma" if route.value == 1 else "fma"
 
 
 def moe_gmm(x, wg, wi, wo, *, gated: bool = True, use_kernel=None):
@@ -148,8 +161,9 @@ def moe_gmm(x, wg, wi, wo, *, gated: bool = True, use_kernel=None):
     run `moe_gmm_plain`; `use_kernel="kernel"` raises on CPU."""
     if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
         return moe_gmm_plain(x, wg, wi, wo, gated=gated)
-    out = _launch(x, wg, wi, wo, None, gated)
+    out, route = _launch(x, wg, wi, wo, None, gated)
     moe_gmm.launches += 1
+    moe_gmm.routes[route] += 1
     return out
 
 
@@ -160,10 +174,13 @@ def moe_gmm_skip(x, wg, wi, wo, counts, *, gated: bool = True,
     rule as `moe_gmm`'s."""
     if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
         return moe_gmm_skip_plain(x, wg, wi, wo, counts, gated=gated)
-    out = _launch(x, wg, wi, wo, counts, gated)
+    out, route = _launch(x, wg, wi, wo, counts, gated)
     moe_gmm_skip.launches += 1
+    moe_gmm_skip.routes[route] += 1
     return out
 
 
 moe_gmm.launches = 0
 moe_gmm_skip.launches = 0
+moe_gmm.routes = dict.fromkeys(ROUTES, 0)
+moe_gmm_skip.routes = dict.fromkeys(ROUTES, 0)

@@ -12,6 +12,7 @@ import torch
 
 import torch_asserts  # noqa: F401  (one torch thread under xdist)
 from repro.kernels import ops, ref
+from repro.models import layers
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 
@@ -84,6 +85,22 @@ def test_flash_plain_ragged_matches_ref(t, h, kh, dh, window, dtype):
     want = ref.flash_attention_ref(jq, jk, jv, window=window)
     _close(tfa.flash_attention_plain(q, k, v, window=window, block=64),
            want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_plain_keyless_rows_match_jax_layers(dtype):
+    """Tq 300 over Tk 100 with a 50-key window: rows 149 and later see no
+    key.  The plain version keeps JAX's block scan there (a mean over the
+    zero-padded 512-key block, where the port's kernel gives 0), and
+    equals it on every row."""
+    (jq, q), (jk, k), (jv, v) = _inputs(
+        4, [(1, 300, 2, 64), (1, 100, 1, 64), (1, 100, 1, 64)], dtype)
+    want = np.asarray(layers.flash_attention(jq, jk, jv, causal=True,
+                                             window=50), np.float32)
+    got = tfa.flash_attention_plain(q, k, v, causal=True, window=50)
+    _close(got, want, dtype)
+    mean = v.float().sum(1, keepdim=True) / 512
+    _close(got[:, 149:], mean.expand(1, 151, 2, 64), dtype)
 
 
 def test_flash_wrapper_runs_plain_on_cpu_and_refuses_the_kernel():

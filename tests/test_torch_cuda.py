@@ -2,9 +2,12 @@
 PyTorch versions: the window kernel bit for bit, plus the sweep and resume
 paths that launch it; the flash and decode attention kernels within the
 tolerances of test_kernels.py (2e-5 in f32, 2e-2 in bf16), plus the model
-path that launches them; the grouped-FFN kernel (`moe_gmm`,
-`moe_gmm_skip`) within test_kernels.py's 2e-5 / 3e-2, empty experts exact
-zeros, plus the MoE model path; the RG-LRU scan within
+path that launches them, and both flash routes' exact zeros on rows
+that see no key; the grouped-FFN kernel (`moe_gmm`, `moe_gmm_skip`)
+within test_kernels.py's 2e-5 / 3e-2 on both routes (the tensor-core
+route at every capacity and at arctic's widths, the route chosen by
+dtype, shape and alignment), empty experts exact zeros whose weights are
+never read, no host synchronisation, plus the MoE model path; the RG-LRU scan within
 test_kernels.py's 2e-5 and the WKV scan within its 5e-4 (bf16 inputs are
 widened exactly, so the same tolerances hold), from zero and from given
 states, plus the recurrent models' paths; the attention kernels at
@@ -175,6 +178,22 @@ def test_flash_kernel_matches_plain(dev, dtype, t, h, kh, dh, window):
     assert fa.flash_attention.launches == before + 1
     _assert_close(got, fa.flash_attention_plain(q, k, v, window=window),
                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_kernel_keyless_rows_are_zero(dev, dtype, dh):
+    """Tq 300 over Tk 100 with a 50-key window: rows 149 and later see no
+    key and are exact zeros in both routes (as decode's kv_len 0); every
+    other row equals the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(dh)
+    q = _randn(gen, (2, 300, 4, dh), dtype, dev)
+    k = _randn(gen, (2, 100, 2, dh), dtype, dev)
+    v = _randn(gen, (2, 100, 2, dh), dtype, dev)
+    got = fa.flash_attention(q, k, v, causal=True, window=50)
+    assert torch.equal(got[:, 149:], torch.zeros_like(got[:, 149:]))
+    _assert_close(got[:, :149], fa.flash_attention_plain(
+        q, k, v, causal=True, window=50)[:, :149], dtype)
 
 
 def test_flash_kernel_reads_strided_views(dev):
@@ -408,6 +427,110 @@ def test_moe_gmm_kernel_refuses_what_it_does_not_take(dev):
         gmm.moe_gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2), w, wo)
     with pytest.raises(ValueError, match="counts"):
         gmm.moe_gmm_skip(x, w, w, wo, torch.ones(2, device=dev))
+
+
+def _gmm_pair(x, wg, wi, wo, counts, gated):
+    """Both entry points and their plain versions on one input."""
+    return ((gmm.moe_gmm(x, wg, wi, wo, gated=gated),
+             gmm.moe_gmm_plain(x, wg, wi, wo, gated=gated)),
+            (gmm.moe_gmm_skip(x, wg, wi, wo, counts, gated=gated),
+             gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts, gated=gated)))
+
+
+@pytest.mark.parametrize("c", [1, 8, 16, 24, 32, 40, 128])
+@pytest.mark.parametrize("d,f,gated", [(136, 200, True), (96, 80, False),
+                                       (256, 128, True)])
+def test_moe_gmm_tensor_core_route_at_every_capacity(dev, c, d, f, gated):
+    """bf16 at the model path's capacities and beyond (C > 32 runs in
+    passes), D and F multiples of 8 that no tile divides, both epilogues:
+    every call takes the tensor-core route and equals the plain version;
+    the skip's dead experts are exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(c * 7 + d + f)
+    e = 5
+    x, wg, wi, wo = _gmm_inputs(gen, e, c, d, f, torch.bfloat16, dev)
+    counts = torch.tensor([0, c, 1, 0, max(1, c // 2)], dtype=torch.int32,
+                          device=dev)
+    before = (dict(gmm.moe_gmm.routes), dict(gmm.moe_gmm_skip.routes))
+    tol = GMM_ATOL[torch.bfloat16]
+    for got, want in _gmm_pair(x, wg, wi, wo, counts, gated):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    assert gmm.moe_gmm.routes["mma"] == before[0]["mma"] + 1
+    assert gmm.moe_gmm_skip.routes["mma"] == before[1]["mma"] + 1
+    assert (gmm.moe_gmm.routes["fma"], gmm.moe_gmm_skip.routes["fma"]) == \
+        (before[0]["fma"], before[1]["fma"])
+    got = gmm.moe_gmm_skip(x, wg, wi, wo, counts, gated=gated)
+    assert not got[counts == 0].any(), "empty experts are exact zeros"
+
+
+def test_moe_gmm_route_follows_dtype_shape_and_alignment(dev):
+    """f32, and bf16 rows that are not 16-byte aligned (F 36), take the
+    CUDA-core route; bf16 with D and F multiples of 8 the tensor cores."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = ((torch.float32, 64, 128, "fma"), (torch.bfloat16, 40, 36, "fma"),
+             (torch.bfloat16, 40, 48, "mma"))
+    for dtype, d, f, route in cases:
+        x, wg, wi, wo = _gmm_inputs(gen, 3, 8, d, f, dtype, dev)
+        before = dict(gmm.moe_gmm.routes)
+        gmm.moe_gmm(x, wg, wi, wo)
+        assert gmm.moe_gmm.routes[route] == before[route] + 1, (dtype, f)
+
+
+def test_moe_gmm_path_shapes_take_the_tensor_core_route(dev):
+    """arctic-480b's expert widths (D 7168, F 4864, bf16) on 3 experts, at
+    a prefill's capacity 24 and a decode step's 8 (one expert dead): both
+    entry points take the tensor-core route and equal the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = GMM_ATOL[torch.bfloat16]
+    for c in (24, 8):
+        x, wg, wi, wo = _gmm_inputs(gen, 3, c, 7168, 4864, torch.bfloat16,
+                                    dev)
+        counts = torch.tensor([c, 0, 3], dtype=torch.int32, device=dev)
+        before = (gmm.moe_gmm.routes["mma"], gmm.moe_gmm_skip.routes["mma"])
+        for got, want in _gmm_pair(x, wg, wi, wo, counts, True):
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+        assert (gmm.moe_gmm.routes["mma"], gmm.moe_gmm_skip.routes["mma"]) \
+            == (before[0] + 1, before[1] + 1)
+        del x, wg, wi, wo
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_skip_never_reads_dead_experts(dev, dtype):
+    """Dead experts' weights (and rows) filled with NaN: their outputs are
+    exact zeros and no NaN reaches any output, so they were never read."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x, wg, wi, wo = _gmm_inputs(gen, 6, 8, 128, 256, dtype, dev)
+    counts = torch.tensor([3, 0, 8, 0, 0, 1], dtype=torch.int32, device=dev)
+    dead = counts == 0
+    for t in (x, wg, wi, wo):
+        t[dead] = float("nan")
+    got = gmm.moe_gmm_skip(x, wg, wi, wo, counts)
+    assert not got.isnan().any()
+    assert not got[dead].any()
+    want = gmm.moe_gmm_skip_plain(x, wg, wi, wo, counts)
+    tol = GMM_ATOL[dtype]
+    torch.testing.assert_close(got[~dead].float(), want[~dead].float(),
+                               atol=tol, rtol=tol)
+
+
+def test_moe_gmm_wrappers_never_synchronise(dev):
+    """Neither entry point reads a device value on the host (the counts
+    stay on the card): under CUDA's sync debug mode "error" a
+    synchronising call would raise."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, wg, wi, wo = _gmm_inputs(gen, 8, 8, 256, 512, torch.bfloat16, dev)
+    counts = torch.tensor([0, 1, 8, 0, 2, 0, 0, 5], dtype=torch.int32,
+                          device=dev)
+    gmm.moe_gmm(x, wg, wi, wo)                    # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gmm.moe_gmm(x, wg, wi, wo)
+        gmm.moe_gmm_skip(x, wg, wi, wo, counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_moe_model_on_card_matches_plain_and_launches_both_kernels(dev):

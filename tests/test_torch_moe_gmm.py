@@ -74,6 +74,27 @@ def test_skip_plain_matches_pallas_skip():
             assert not got[i].any() and not np.asarray(want[i]).any()
 
 
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_matches_pallas_at_path_capacities(c, dtype):
+    """The capacities of the model path (C 8 at a decode step, up to 32 at
+    a prefill) at a narrow width: both plain versions against the Pallas
+    kernels in interpret mode, with counts holding zeros."""
+    (jx, x), (jwg, wg), (jwi, wi), (jwo, wo) = _inputs(10 + c, 4, c, 128,
+                                                       256, dtype)
+    want = ops.moe_gmm(jx, jwg, jwi, jwo, block_c=c, block_f=128,
+                       block_d=64)
+    _close(tg.moe_gmm_plain(x, wg, wi, wo), want, dtype)
+    counts = np.array([0, c, 0, 1], np.int32)
+    want = ops.moe_gmm_skip(jx, jwg, jwi, jwo, jnp.asarray(counts),
+                            block_c=c, block_f=128, block_d=64)
+    got = tg.moe_gmm_skip_plain(x, wg, wi, wo, torch.from_numpy(counts))
+    _close(got, want, dtype)
+    for i, n in enumerate(counts):
+        if n == 0:
+            assert not got[i].any() and not np.asarray(want[i]).any()
+
+
 @pytest.mark.parametrize("gated", [True, False])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_ragged_shapes_match_ref(gated, dtype):
