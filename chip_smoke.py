@@ -55,9 +55,11 @@ the serving shapes beside their bound, their plain versions and three
 `torch.bmm` calls (timed only, never on the path).
 
 The recurrent slice: it holds the RG-LRU and WKV scans (`rglru_scan`,
-`rwkv6_scan`) against their plain versions (test_kernels.py's shapes,
-ragged T, bf16 and f32, from zero and from given states, and the
-full-width prefill and decode shapes) and the attention kernels at
+`rwkv6_scan`) against their plain versions on each of their two kernel
+routes, "chunked" and "step" (test_kernels.py's shapes, the serving
+path's ragged prompt lengths, T below a sub-chunk, strong decay, bf16 and
+f32, from zero and from given states, and the full-width prefill and
+decode shapes) and the attention kernels at
 recurrentgemma's head dim 256 with 16 query heads over 1; runs
 recurrentgemma-9b (3 layers: one (rec, rec, lattn) segment) and rwkv6-7b
 (2 layers) at full width, f32, through the kernels and holds 9 steps of
@@ -69,7 +71,8 @@ plain one (recurrentgemma: a 4,096-token prompt, two windows, then decode
 past 4,096 around the ring; rwkv6: 1,024 tokens), profiles a serving
 step and an admission, and serves 16 requests through
 `repro_torch.launch.serve` (the main path of this slice, each kernel's
-launches counted).
+launches counted, and each scan's routes: every prefill on the chunked
+route, every decode step on the step route).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
@@ -1339,8 +1342,19 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
                 "moe_gmm": gmm.moe_gmm, "moe_gmm_skip": gmm.moe_gmm_skip,
                 "rglru_scan": rgs.rglru_scan, "rwkv6_scan": rws.rwkv6_scan}
     # kernels a wrapper call runs: decode's split and merge, the grouped
-    # FFN's two stages
+    # FFN's two stages; a scan's chunked route runs two (its parallel pass
+    # and its pass over T), its step route one
     per_launch = {"decode_attention": 2, "moe_gmm": 2, "moe_gmm_skip": 2}
+    scans = ("rglru_scan", "rwkv6_scan")
+
+    def kernels_run(before, before_routes):
+        out = {k: (w.launches - before[k]) * per_launch.get(k, 1)
+               for k, w in wrappers.items() if k not in scans}
+        for k in scans:
+            d = {r: wrappers[k].routes[r] - before_routes[k][r]
+                 for r in wrappers[k].routes}
+            out[k] = 2 * d["chunked"] + d["step"]
+        return out
     reqs = lambda: serve.requests(cfg, SERVE["batch"], 24,
                                   SERVE["prompt_len"], seed=1)
     prompt_tokens = sum(len(r.prompt) for r in reqs())
@@ -1354,14 +1368,13 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
                 batcher.step()
             torch.cuda.synchronize()
             before = {k: w.launches for k, w in wrappers.items()}
+            before_routes = {k: dict(wrappers[k].routes) for k in scans}
             with wrap() as ctx:
                 t0 = time.perf_counter()
                 for _ in range(n):
                     batcher.step()
                 torch.cuda.synchronize()
-                launched = {k: (w.launches - before[k]) *
-                            per_launch.get(k, 1)
-                            for k, w in wrappers.items()}
+                launched = kernels_run(before, before_routes)
                 out[name] = (1e3 * (time.perf_counter() - t0) / n, ctx,
                              {k: v for k, v in launched.items() if v})
         return out
@@ -2085,10 +2098,20 @@ SCAN_TOL = {"rglru_scan": 2e-5, "rwkv6_scan": 5e-4}
 RG, RWKV = "recurrentgemma-9b", "rwkv6-7b"
 RGLRU_CASES = (  # (B, T, W, with h0): test_kernels.py's, ragged, the path's
     (2, 128, 128, False), (1, 256, 256, False), (2, 64, 512, False),
-    (3, 77, 200, True), (1, 4096, 4096, True), (8, 1, 4096, True))
+    (3, 77, 200, True), (1, 4096, 4096, True), (8, 1, 4096, True),
+    # the serving path's ragged prompts, and T below one 64-step chunk
+    (1, 777, 4096, True), (1, 2040, 4096, True), (2, 50, 4096, True))
 RWKV_CASES = (  # (B, T, H, N, with S0)
     (1, 128, 2, 32, False), (2, 128, 1, 64, False), (1, 64, 3, 16, False),
-    (2, 37, 4, 16, True), (1, 1024, 64, 64, True), (8, 1, 64, 64, True))
+    (2, 37, 4, 16, True), (1, 1024, 64, 64, True), (8, 1, 64, 64, True),
+    # the serving path's ragged prompts, and T below one 16-token
+    # sub-chunk
+    (1, 777, 64, 64, True), (1, 1500, 64, 64, True), (2, 7, 64, 64, True))
+# strong decay: logw ~ U(-20, 0) a step; lam 6 with r near 1 (b_r + 8),
+# a ~ exp(-48): a decay factored across a whole chunk would overflow here
+RGLRU_STRONG = ((1, 1024, 4096, True), (2, 100, 512, False))
+RWKV_STRONG = ((1, 1024, 64, 64, True), (2, 37, 4, 16, False))
+RWKV_SPLIT_CASE = (1, 1024, 64, 64, True)   # the f32 error's attribution
 ATTN256_FLASH = (  # (B, T, H, KH, D, window): recurrentgemma's local attn
     (1, 97, 16, 1, 256, 2048), (2, 333, 16, 1, 256, 128),
     (1, 1024, 16, 1, 256, 2048), (1, 4096, 16, 1, 256, 2048))
@@ -2120,6 +2143,8 @@ RGLRU_OPS_PER_ELEM = 22
 # recurrentgemma's prompts for the flash timing: one window, two windows
 FLASH_PROMPTS_D256 = (1024, 4096)
 F32_FLOPS_PER_S = 67e12
+# bytes of inputs a scan timing cycles through: three times the 50 MB L2
+SCAN_ROTATE_BYTES = 150_000_000
 
 
 def _recurrent(arch: str, **kw):
@@ -2128,61 +2153,117 @@ def _recurrent(arch: str, **kw):
     return dataclasses.replace(cb.get_config(arch), **kw)
 
 
-def _scan_inputs(name, case, dtype, gen, dev):
+def _scan_inputs(name, case, dtype, gen, dev, strong: bool = False):
     """Seeded inputs of one scan case, in test_kernels.py's distributions
     (gate parameters N(0, 0.01), lam on [2, 6]; logw = -exp(N(0, 0.25)),
-    u ~ N(0, 0.01)); states N(0, 1)."""
+    u ~ N(0, 0.01)); states N(0, 1).  `strong`: lam 6 and b_r + 8 (r near
+    1); logw ~ U(-20, 0)."""
     r = lambda *s: torch.randn(s, generator=gen, device=dev)
     if name == "rglru_scan":
         b, t, w, start = case
         params = [r(w) * 0.1 for _ in range(4)]
         params.append(torch.linspace(2.0, 6.0, w, device=dev))
+        if strong:
+            params[1] = params[1] + 8.0
+            params[4] = torch.full((w,), 6.0, device=dev)
         return (r(b, t, w).to(dtype), *params, r(b, w) if start else None)
     b, t, h, n, start = case
     rkv = [r(b, t, h, n).to(dtype) for _ in range(3)]
-    return (*rkv, -torch.exp(r(b, t, h, n) * 0.5), r(h, n) * 0.1,
-            r(b, h, n, n) if start else None)
+    logw = (-20.0 * torch.rand((b, t, h, n), generator=gen, device=dev)
+            if strong else -torch.exp(r(b, t, h, n) * 0.5))
+    return (*rkv, logw, r(h, n) * 0.1, r(b, h, n, n) if start else None)
 
 
-def _scan_err(name, args, what: str) -> float:
-    """The scan against its plain version on one input: both outputs
-    held to SCAN_TOL; returns the largest difference."""
+def _scan_err(name, args, what: str) -> tuple[float, float, str]:
+    """The scan's wrapper against its plain version on one input: both
+    outputs held to SCAN_TOL.  Returns the largest difference, the
+    largest share of the tolerance (|got - want| / (tol + tol |want|))
+    and the route the wrapper took."""
     from repro_torch.kernels import rglru_scan as rgs
     from repro_torch.kernels import rwkv6_scan as rws
-    mod = rgs if name == "rglru_scan" else rws
-    got = getattr(mod, name)(*args)
-    want = getattr(mod, f"{name}_plain")(*args)
+    fn = getattr(rgs if name == "rglru_scan" else rws, name)
+    before = dict(fn.routes)
+    got = fn(*args)
+    route = next(r for r in fn.routes if fn.routes[r] > before[r])
+    want = getattr(rgs if name == "rglru_scan" else rws,
+                   f"{name}_plain")(*args)
     tol = SCAN_TOL[name]
-    err = 0.0
+    err = share = 0.0
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=tol, rtol=tol,
                                    msg=lambda m: f"{name} {what}: {m}")
-        err = max(err, float((g - w).abs().max()))
-    return err
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        share = max(share, float((diff / (tol + tol * w.abs())).max()))
+    return err, share, route
+
+
+def _path_route(name, case) -> str:
+    """The route the wrapper takes for a case of contiguous (so 16-byte
+    aligned) tensors, as a serving path calls it: chunked from two WKV
+    sub-chunks, or past one RG-LRU chunk; step below."""
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
+    t = case[1]
+    if name == "rglru_scan":
+        return "chunked" if t > rgs.CHUNK else "step"
+    return "chunked" if t >= 2 * rws.SUB_CHUNK else "step"
 
 
 def phase_scans_vs_plain(dev, errs: dict) -> None:
-    """Both scans against their plain versions, f32 and bf16 inputs:
-    test_kernels.py's shapes, a ragged T, a given initial state, and the
-    full-width prefill and decode shapes of the serving path."""
+    """Both scans through their wrappers against their plain versions, f32
+    and bf16 inputs, each case on the route the wrapper picks for it (and
+    fails on another): test_kernels.py's shapes, ragged T, T below a
+    sub-chunk, a given initial state, the full-width prefill and decode
+    shapes of the serving path, and strong decay.  Reports each case's
+    largest difference and share of its tolerance, the worst by kernel,
+    dtype and route, and the share of one f32 WKV prefill with its
+    operands made exact in bf16 one by one (what the splits cost)."""
     gen = torch.Generator(device=dev).manual_seed(14)
-    worst = {}
-    for name, cases in (("rglru_scan", RGLRU_CASES),
-                        ("rwkv6_scan", RWKV_CASES)):
+    worst, cases_out = {}, {}
+    for name, cases, strong_cases in (
+            ("rglru_scan", RGLRU_CASES, RGLRU_STRONG),
+            ("rwkv6_scan", RWKV_CASES, RWKV_STRONG)):
         for dtype in (torch.float32, torch.bfloat16):
-            key = (name, str(dtype).split(".")[-1])
-            for case in cases:
-                err = _scan_err(name, _scan_inputs(name, case, dtype, gen,
-                                                   dev), f"{dtype} {case}")
-                worst[key] = max(worst.get(key, 0.0), err)
+            for case, strong in ([(c, False) for c in cases] +
+                                 [(c, True) for c in strong_cases]):
+                args = _scan_inputs(name, case, dtype, gen, dev, strong)
+                dt = str(dtype).split(".")[-1]
+                what = f"{dt} {case}{' strong' if strong else ''}"
+                err, share, route = _scan_err(name, args, what)
+                check(route == _path_route(name, case),
+                      f"{name} {what} took the {route} route, not the "
+                      f"{_path_route(name, case)} one")
+                key = (name, dt, route)
+                e0, f0 = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(e0, err), max(f0, share))
+                cases_out[f"{name} {what}"] = [route, err, share]
+    # where the WKV chunked route's f32 error comes from: one f32 prefill
+    # as drawn, with v, and with r, k and v rounded to bf16 values (exact
+    # in the bf16 hi part of the kernel's splits; decayed r and k are not)
+    args = _scan_inputs("rwkv6_scan", RWKV_SPLIT_CASE, torch.float32, gen,
+                        dev)
+    exact = lambda x: x.bfloat16().float()
+    split_share = {
+        what: _scan_err("rwkv6_scan", a, f"float32 {what}")[1]
+        for what, a in (
+            ("as drawn", args),
+            ("v exact", (*args[:2], exact(args[2]), *args[3:])),
+            ("r, k, v exact", (*map(exact, args[:3]), *args[3:])))}
     torch.cuda.synchronize()
-    for (name, _), err in worst.items():
+    for (name, _, _), (err, _) in worst.items():
         errs[name] = max(errs[name], err)
     emit("scans_vs_plain", rglru_cases=[list(c) for c in RGLRU_CASES],
          rwkv6_cases=[list(c) for c in RWKV_CASES],
+         rglru_strong_cases=[list(c) for c in RGLRU_STRONG],
+         rwkv6_strong_cases=[list(c) for c in RWKV_STRONG],
          dtypes=["float32", "bfloat16"], tolerance=SCAN_TOL,
-         max_abs_err={f"{n} {d}": e for (n, d), e in worst.items()},
-         match=True)
+         max_abs_err={" ".join(k): e for k, (e, _) in worst.items()},
+         max_share_of_tolerance={" ".join(k): f
+                                 for k, (_, f) in worst.items()},
+         by_case_route_err_share=cases_out,
+         rwkv6_float32_share_by_exact_operand=dict(
+             case=list(RWKV_SPLIT_CASE), **split_share), match=True)
 
 
 def phase_attention256_vs_plain(dev, errs: dict) -> None:
@@ -2340,15 +2421,18 @@ def phase_recurrent_serve(dev, arch: str) -> dict:
                 "decode_attention": da.decode_attention}
     for fn in wrappers.values():
         fn.launches = 0
+    for name in ("rglru_scan", "rwkv6_scan"):
+        wrappers[name].routes = dict.fromkeys(wrappers[name].routes, 0)
     report = serve.serve(arch, device=dev, **kw)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    scan = "rglru_scan" if arch == RG else "rwkv6_scan"
+    routes = dict(wrappers[scan].routes)
     n = kw["num_requests"]
     check(report["finished"] == n, f"served {report['finished']} of {n}")
     check(report["generated_tokens"] == n * kw["new_tokens"],
           "tokens missing")
     types = [t for ts, k in transformer.segments(cfg) for t in ts
              for _ in range(k)]
-    scan = "rglru_scan" if arch == RG else "rwkv6_scan"
     blocks = types.count("rec") + types.count("rwkv")
     want = {name: 0 for name in wrappers}
     want[scan] = (n + report["steps"]) * blocks
@@ -2356,11 +2440,17 @@ def phase_recurrent_serve(dev, arch: str) -> dict:
     want["decode_attention"] = report["steps"] * types.count("lattn")
     check(launches == want, f"{arch} serving launched {launches}, not "
                             f"{want}")
+    # every prefill (a row at a time, T >= 100) on the chunked route, every
+    # decode step (T 1) on the step route
+    want_routes = {"chunked": n * blocks, "step": report["steps"] * blocks}
+    check(routes == want_routes, f"{arch} serving took the routes "
+                                 f"{routes}, not {want_routes}")
     emit("recurrent_serve", arch=arch, layers=cfg.num_layers,
          dtype=cfg.dtype, **{k: v for k, v in kw.items()
                              if k != "prompt_len"},
-         prompt_len=list(kw["prompt_len"]), launches=launches, **report)
-    return launches
+         prompt_len=list(kw["prompt_len"]), launches=launches,
+         routes={scan: routes}, **report)
+    return launches, routes
 
 
 def _scan_bound(flops: int, nbytes: int) -> tuple[float, str]:
@@ -2371,9 +2461,26 @@ def _scan_bound(flops: int, nbytes: int) -> tuple[float, str]:
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _cycled(fn, sets: list):
+    """A call of fn on the next of `sets` (argument tuples), round and
+    round."""
+    state = {"i": 0}
+
+    def call():
+        i = state["i"] = (state["i"] + 1) % len(sets)
+        return fn(*sets[i])
+    return call
+
+
 def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
     """Kernel and plain times of both scans at the full-width prefill
-    (T 1,024, bf16 inputs) and decode (B 8, T 1, from a state) shapes,
+    (T 1,024, bf16 inputs) and decode (B 8, T 1, from a state) shapes
+    (event means of back-to-back wrapper calls, the host's call included,
+    and the profiler's device time, in all and by kernel, with the route
+    the wrapper took and the share of the bound), each call on the next
+    of enough input sets (states included) to pass SCAN_ROTATE_BYTES, so
+    that every input comes from HBM, as on the serving path, where each
+    block keeps its own state,
     and of both attention kernels at head dim 256 (flash: T 1,024 and
     4,096, 16 heads over 1, window 2,048; decode: B 8 over 2,048-slot
     rings with ragged kv_len, cycling through 8 layers' rings, 134 MB,
@@ -2393,28 +2500,38 @@ def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
             ("rwkv6_scan", rws, {"prefill": (1, 1024, 64, 64, True),
                                  "decode": (8, 1, 64, 64, True)})):
         for where, case in shapes.items():
-            args = _scan_inputs(name, case, bf16, gen, dev)
-            errs[name] = max(errs[name], _scan_err(name, args,
-                                                   f"timing {where}"))
-            fn, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
-            ms = cuda_ms(lambda: fn(*args), 50)
-            plain_ms = cuda_ms(lambda: plain(*args), 2)
             if name == "rglru_scan":
                 b, t, w, _ = case
                 flops = RGLRU_OPS_PER_ELEM * b * t * w
-                nbytes = 2 * b * t * w + 5 * 4 * w + 4 * b * w + \
-                    4 * b * t * w + 4 * b * w
+                in_bytes = 2 * b * t * w + 5 * 4 * w + 4 * b * w
+                nbytes = in_bytes + 4 * b * t * w + 4 * b * w
                 shape = f"B={b} T={t} W={w}, u bf16, h0 given"
             else:
                 b, t, h, n, _ = case
                 flops = 4 * n * n * b * t * h
-                nbytes = (3 * 2 + 4 + 4) * b * t * h * n + 4 * h * n + \
-                    2 * 4 * b * h * n * n
+                in_bytes = (3 * 2 + 4) * b * t * h * n + 4 * h * n + \
+                    4 * b * h * n * n
+                nbytes = in_bytes + 4 * b * t * h * n + 4 * b * h * n * n
                 shape = f"B={b} T={t} H={h} N={n}, r/k/v bf16, S0 given"
+            sets = [_scan_inputs(name, case, bf16, gen, dev) for _ in range(
+                max(2, -(-SCAN_ROTATE_BYTES // in_bytes)))]
+            err, _, route = _scan_err(name, sets[0], f"timing {where}")
+            errs[name] = max(errs[name], err)
+            fn = _cycled(getattr(mod, name), sets)
+            plain = getattr(mod, f"{name}_plain")
+            ms = cuda_ms(fn, 50)
+            # the profiler kept few records of the short decode calls
+            reps = 100 if where == "decode" else 20
+            dev_ms, kept = device_ms(fn, reps)
+            by_kernel = kernel_breakdown(fn, reps)
+            plain_ms = cuda_ms(_cycled(plain, sets), 2)
             bound, by = _scan_bound(flops, nbytes)
             out[f"{name} {where}"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-                bound_by=by, flops=flops, bytes=nbytes, shape=shape)
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                share_of_bound=bound / dev_ms if dev_ms else None,
+                shape=shape, route=route, input_sets=len(sets),
+                profiler_records_kept=kept, device_ms_by_kernel=by_kernel)
             emit(f"time_{name}_{where}", **out[f"{name} {where}"])
 
     r = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
@@ -2468,7 +2585,7 @@ def phase_recurrent(dev, attn_errs: dict) -> tuple[list, dict]:
         torch.cuda.empty_cache()
     times = phase_time_recurrent(dev, errs, attn_errs)
     torch.cuda.empty_cache()
-    launches = {}
+    launches, routes = {}, {}
     for arch in (RG, RWKV):
         cfg = _recurrent(arch)
         if DEEP_GATED_DTYPE[arch] != cfg.dtype:
@@ -2485,7 +2602,7 @@ def phase_recurrent(dev, attn_errs: dict) -> tuple[list, dict]:
                         f"serve_profile_{arch.split('-')[0]}")
         del params
         torch.cuda.empty_cache()
-        launches[arch] = phase_recurrent_serve(dev, arch)   # counted
+        launches[arch], routes[arch] = phase_recurrent_serve(dev, arch)
         torch.cuda.empty_cache()
     entries = []
     for name, arch in (("rglru_scan", RG), ("rwkv6_scan", RWKV)):
@@ -2496,9 +2613,12 @@ def phase_recurrent(dev, attn_errs: dict) -> tuple[list, dict]:
             "launches": launches[arch][name], "max_abs_err": errs[name],
             "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
             "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
-            "library_ms": None, "match": True, "shape": prefill["shape"],
-            "decode": {k: decode[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "shape")}})
+            "library_ms": None, "device_ms": prefill["device_ms"],
+            "match": True, "shape": prefill["shape"],
+            "prefill_route": prefill["route"], "routes": routes[arch],
+            "decode": {k: decode[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "shape", "route")}})
     attn = {name: dict(times[f"{name} d256"],
                        launches_recurrentgemma=launches[RG][name])
             for name in ("flash_attention", "decode_attention")}

@@ -1,6 +1,7 @@
 // The warp-level tensor-core pieces shared by the decode attention kernel
-// (decode_attention.cu) and the grouped-FFN kernel (moe_gmm.cu), as inline
-// PTX: 16-byte cp.async copies from global to shared memory with their
+// (decode_attention.cu), the grouped-FFN kernel (moe_gmm.cu) and the WKV
+// scan (rwkv6_scan.cu), as inline PTX: 16-byte cp.async copies from global
+// to shared memory with their
 // commit/wait groups, ldmatrix (plain and transposed) of 8 x 8 bf16
 // matrices into the operand registers of the tensor cores, and mma.sync
 // m16n8k16 of bf16 operands into f32 accumulators.  sm_80 and later.
@@ -77,6 +78,15 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
                                             const void* ptr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(ptr)));
+}
+
+// The same, transposed (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(ptr)));
 }

@@ -14,24 +14,50 @@
 // port's kernel takes and returns them (the same function the JAX model's
 // associative scan and `rglru_step` compute, in another summation order).
 //
-// Layout: one thread per (batch row, channel), consecutive threads on
-// consecutive channels, so each time step's u and h rows are read and
-// written as whole coalesced lines.  The five gate parameters and
+// Every kernel runs one thread per (batch row, channel), consecutive
+// threads on consecutive channels, so each time step's u and h rows are
+// read and written as whole coalesced lines; the five gate parameters and
 // -8 softplus(lam) (stable for any lam: max(x, 0) + log1p(exp(-|x|))) sit
-// in registers.  The loop over t is unrolled by kUnroll: the u loads and
-// the gate arithmetic of those steps do not depend on h, so they are in
-// flight while the one dependent FMA chain h = a h + b runs.  u is read
-// in its own type (bf16 or f32) through its (batch, time) strides and
+// in registers; loops over t are unrolled by kUnroll, so the u loads and
+// the gate arithmetic of those steps (which do not depend on h) are in
+// flight while the one dependent FMA chain h = a h + b runs.  u is read in
+// its own type (bf16 or f32) through its (batch, time) strides and
 // converted in registers: no host-side copy.
 //
-// What bounds it on this card: bytes.  Each u element is read once and
-// each h element written once (f32): at B = 1, T = 1024, W = 4096 that is
-// 8.4 MB of bf16 u and 16.8 MB of h, ~7.5 us at 3.35 TB/s; the gates are
-// ~30 flops an element.  At B = 1 this design fills only W / 128 = 32
-// CTAs of 128 threads on 132 SMs, and each thread walks all T steps: a
-// chunked two-pass scan over time (chunk-local scans with a zero start,
-// then a pass that carries each chunk's start state through its cumulative
-// decay) would fill the card and is later work.
+// Two routes, chosen in the C entry point from the shapes alone and
+// written back:
+//
+// * "chunked" (T > kChunk = 64: every prefill) scans chunks of 64 steps in
+//   parallel, on a grid of (W / 128, B, chunks): 512 CTAs at B 1, T 1024,
+//   W 4096.  Pass 1 (`rglru_kernel_chunk_aggregate`, every chunk but the
+//   last) reads the chunk's u and writes only its aggregate, (A, B) with
+//   A = prod a_t and B the chunk's scan from zero, to a (B, chunks - 1, W,
+//   2) f32 scratch the wrapper allocates.  Pass 2 (`rglru_kernel_chunk_
+//   scan`) carries h to the chunk's start through the aggregates before it
+//   (h = A h + B, at most chunks - 1 FMAs a channel, the 0.5 MB of
+//   aggregates read from L2: the three-pass form's carry pass folded into
+//   the rescan, one launch fewer), then rescans the chunk from that true
+//   start with the gates and the FMA chain of the step route, writing h;
+//   the last chunk writes h_last.  Only the start state arrives through
+//   composed aggregates, so the result stays within f32 rounding of the
+//   sequential scan; a product of decays only underflows, never overflows
+//   (no factor 1 / prod a appears).  The ragged tail is a shorter last
+//   chunk.  (A one-pass scan with decoupled look-back, each chunk waiting
+//   on the carry its predecessor publishes, reads u once but needs flags
+//   and an in-order ticket across CTAs; not chosen for a first design.)
+// * "step" (`rglru_kernel_step`, T <= 64, e.g. T 1 at decode): one thread
+//   per (batch row, channel) walks all of T.
+//
+// What bounds it on this card: at B = 1, T = 1024, W = 4096 the function
+// reads 8.4 MB of bf16 u and writes 16.8 MB of h (f32), ~7.5 us at 3.35
+// TB/s; the gates are ~22 f32 operations an element, ~6 of them on the
+// special function units (two sigmoids, two exponentials, a square root;
+// 16 results a clock and SM), which at one pass over T take about as long
+// as the bytes.  The chunked route reads u twice and computes the gates
+// twice (pass 1 for the aggregates): ~34 MB and twice the special-function
+// work, against the step route's 32 CTAs of 128 threads, which leave 100
+// of 132 SMs empty at B = 1 and walk all of T one step at a time.  The
+// decoupled look-back would save pass 1's gate work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; the plain C entry point is bound with ctypes.
@@ -43,6 +69,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnroll = 8;
+constexpr int kChunk = 64;              // steps a chunk (chunked route)
 constexpr float kC = 8.0f;              // C_RGLRU
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -53,82 +80,165 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 struct Gates {
   float wr, br, wi, bi, neg_c_sp;       // neg_c_sp = -8 softplus(lam)
 
-  __device__ float step(float u, float h) const {
+  __device__ Gates(const float* const* prm, int c) {
+    const float l = prm[4][c];
+    wr = prm[0][c];
+    br = prm[1][c];
+    wi = prm[2][c];
+    bi = prm[3][c];
+    neg_c_sp = -kC * (fmaxf(l, 0.f) + log1pf(expf(-fabsf(l))));
+  }
+
+  // a_t and b_t of one step
+  __device__ float2 ab(float u) const {
     const float r = 1.f / (1.f + expf(-(u * wr + br)));
     const float i = 1.f / (1.f + expf(-(u * wi + bi)));
     const float log_a = neg_c_sp * r;
     const float a = expf(log_a);
     const float b = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f)) * (i * u);
-    return fmaf(a, h, b);
+    return make_float2(a, b);
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rglru_kernel(const T* __restrict__ u, long long usb, long long ust,
-             const float* __restrict__ w_r, const float* __restrict__ b_r,
-             const float* __restrict__ w_i, const float* __restrict__ b_i,
-             const float* __restrict__ lam, const float* __restrict__ h0,
-             float* __restrict__ h, float* __restrict__ h_last, int T_,
-             int W) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  const int b = blockIdx.y;
-  if (c >= W) return;
-  const float l = lam[c];
-  const Gates g{w_r[c], b_r[c], w_i[c], b_i[c],
-                -kC * (fmaxf(l, 0.f) + log1pf(expf(-fabsf(l))))};
-  float hv = h0 != nullptr ? h0[static_cast<long long>(b) * W + c] : 0.f;
-  const T* up = u + b * usb + c;
-  float* hp = h + static_cast<long long>(b) * T_ * W + c;
+struct Args {
+  const void* u;
+  long long usb, ust;                   // u's batch and time strides
+  const float* prm[5];                  // w_r, b_r, w_i, b_i, lam
+  const float* h0;                      // (B, W) or null
+  float* h;                             // (B, T, W)
+  float* h_last;                        // (B, W)
+  float2* agg;                          // (B, chunks - 1, W): (A, B)
+  int T, W;
+};
 
-  int t = 0;
-  for (; t + kUnroll <= T_; t += kUnroll) {
+// Walk steps [t0, t1) of channel c from hv: with `write`, store each h_t;
+// with `prod`, also multiply the decays into *prod.  Returns the last h.
+template <typename T, bool kWrite, bool kProd>
+__device__ __forceinline__ float walk(const Args& a, const Gates& g, int b,
+                                      int c, int t0, int t1, float hv,
+                                      float* prod) {
+  const T* up = static_cast<const T*>(a.u) + b * a.usb + c;
+  float* hp = a.h + static_cast<long long>(b) * a.T * a.W + c;
+  float pr = 1.f;
+  int t = t0;
+  for (; t + kUnroll <= t1; t += kUnroll) {
     float uv[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) uv[j] = to_f32(up[(t + j) * ust]);
+    for (int j = 0; j < kUnroll; ++j) uv[j] = to_f32(up[(t + j) * a.ust]);
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
-      hv = g.step(uv[j], hv);
-      hp[static_cast<long long>(t + j) * W] = hv;
+      const float2 ab = g.ab(uv[j]);
+      hv = fmaf(ab.x, hv, ab.y);
+      if (kProd) pr *= ab.x;
+      if (kWrite) hp[static_cast<long long>(t + j) * a.W] = hv;
     }
   }
-  for (; t < T_; ++t) {
-    hv = g.step(to_f32(up[t * ust]), hv);
-    hp[static_cast<long long>(t) * W] = hv;
+  for (; t < t1; ++t) {
+    const float2 ab = g.ab(to_f32(up[t * a.ust]));
+    hv = fmaf(ab.x, hv, ab.y);
+    if (kProd) pr *= ab.x;
+    if (kWrite) hp[static_cast<long long>(t) * a.W] = hv;
   }
-  h_last[static_cast<long long>(b) * W + c] = hv;
+  if (kProd) *prod = pr;
+  return hv;
 }
 
 template <typename T>
-int launch(const void* u, int B, int T_, int W, long long usb,
-           long long ust, const float* const* params, const float* h0,
-           float* h, float* h_last, cudaStream_t stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, B);
-  rglru_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(u), usb, ust, params[0], params[1], params[2],
-      params[3], params[4], h0, h, h_last, T_, W);
+__global__ void __launch_bounds__(kThreads) rglru_kernel_step(Args a) {
+  const int c = blockIdx.x * kThreads + threadIdx.x, b = blockIdx.y;
+  if (c >= a.W) return;
+  const Gates g(a.prm, c);
+  const long long bc = static_cast<long long>(b) * a.W + c;
+  const float h0 = a.h0 != nullptr ? a.h0[bc] : 0.f;
+  a.h_last[bc] = walk<T, true, false>(a, g, b, c, 0, a.T, h0, nullptr);
+}
+
+// pass 1: (prod a, the scan from zero) of chunk blockIdx.z
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rglru_kernel_chunk_aggregate(Args a) {
+  const int c = blockIdx.x * kThreads + threadIdx.x, b = blockIdx.y,
+            chunk = blockIdx.z;
+  if (c >= a.W) return;
+  const Gates g(a.prm, c);
+  const int t0 = chunk * kChunk;
+  float prod;
+  const float part = walk<T, false, true>(a, g, b, c, t0, t0 + kChunk, 0.f,
+                                          &prod);
+  const int chunks = (a.T + kChunk - 1) / kChunk;
+  a.agg[(static_cast<long long>(b) * (chunks - 1) + chunk) * a.W + c] =
+      make_float2(prod, part);
+}
+
+// pass 2: carry h through the aggregates of the chunks before, rescan
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rglru_kernel_chunk_scan(Args a) {
+  const int c = blockIdx.x * kThreads + threadIdx.x, b = blockIdx.y,
+            chunk = blockIdx.z;
+  if (c >= a.W) return;
+  const long long bc = static_cast<long long>(b) * a.W + c;
+  const int chunks = (a.T + kChunk - 1) / kChunk;
+  float hv = a.h0 != nullptr ? a.h0[bc] : 0.f;
+  const float2* ag = a.agg + static_cast<long long>(b) * (chunks - 1) * a.W +
+                     c;
+  for (int j = 0; j < chunk; ++j) {
+    const float2 x = ag[static_cast<long long>(j) * a.W];
+    hv = fmaf(x.x, hv, x.y);
+  }
+  const Gates g(a.prm, c);
+  const int t0 = chunk * kChunk, t1 = min(t0 + kChunk, a.T);
+  hv = walk<T, true, false>(a, g, b, c, t0, t1, hv, nullptr);
+  if (chunk == chunks - 1) a.h_last[bc] = hv;
+}
+
+template <typename T>
+int launch(const Args& a, int B, bool chunked, cudaStream_t stream) {
+  const int wb = (a.W + kThreads - 1) / kThreads;
+  if (!chunked) {
+    rglru_kernel_step<T><<<dim3(wb, B), kThreads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int chunks = (a.T + kChunk - 1) / kChunk;
+  rglru_kernel_chunk_aggregate<T>
+      <<<dim3(wb, B, chunks - 1), kThreads, 0, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rglru_kernel_chunk_scan<T><<<dim3(wb, B, chunks), kThreads, 0, stream>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Bytes of the chunked route's scratch (each chunk's aggregate but the
+// last's), which the caller allocates; 0 where the route is not taken (T
+// <= 64).
+extern "C" long long rglru_chunked_scratch_bytes(int B, int T, int W) {
+  const int chunks = (T + kChunk - 1) / kChunk;
+  return chunks > 1 ? 8LL * B * (chunks - 1) * W : 0;
+}
+
 // h (B, T, W) and h_last (B, W), both f32 and contiguous, <- the RG-LRU
 // scan of u on `stream`.  u's last dimension is contiguous; `usb`/`ust`
 // are its batch and time strides in elements.  `params` holds the five
 // (W,) f32 gate vectors w_r, b_r, w_i, b_i, lam; h0 (B, W) f32 contiguous,
-// or null for a zero start.  dtype: 0 f32, 1 bf16.  Returns the CUDA error
-// of the launch (0 on success); never synchronises.
+// or null for a zero start.  dtype: 0 f32, 1 bf16.  `agg`: the scratch of
+// `rglru_chunked_scratch_bytes` ((B, ceil(T / 64) - 1, W) pairs of f32),
+// or null.  The route is chunked when T > 64 and `agg` is given, else
+// step; it is written to *route (1 chunked, 0 step).  Returns the CUDA
+// error of the launches (0 on success); never synchronises.
 extern "C" int rglru_scan_launch(const void* u, int dtype, int B, int T,
                                  int W, long long usb, long long ust,
                                  const float* const* params,
                                  const float* h0, float* h, float* h_last,
-                                 void* stream) {
+                                 float* agg, void* stream, int* route) {
+  const bool chunked = T > kChunk && agg != nullptr;
+  *route = chunked ? 1 : 0;
   if (B <= 0 || W <= 0) return 0;
+  Args a{u, usb, ust, {params[0], params[1], params[2], params[3], params[4]},
+         h0, h, h_last, reinterpret_cast<float2*>(agg), T, W};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(u, B, T, W, usb, ust, params, h0, h, h_last, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(u, B, T, W, usb, ust, params, h0, h,
-                                 h_last, s);
+  if (dtype == 0) return launch<float>(a, B, chunked, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, B, chunked, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,9 @@ dtype, shape and alignment), empty experts exact zeros whose weights are
 never read, no host synchronisation, plus the MoE model path; the RG-LRU scan within
 test_kernels.py's 2e-5 and the WKV scan within its 5e-4 (bf16 inputs are
 widened exactly, so the same tolerances hold), from zero and from given
-states, plus the recurrent models' paths; the attention kernels at
+states, on both kernel routes ("chunked" and "step") at ragged T and at
+strong decay, the route each wrapper picks and counts, plus the recurrent
+models' paths; the attention kernels at
 RecurrentGemma's head dim 256 with 16 query heads over 1.  Marked `cuda`;
 every test skips without a CUDA device.  On a machine with a card:
 `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
@@ -615,6 +617,115 @@ def test_rwkv6_kernel_matches_plain(dev, dtype, b, t, h, n, start):
     want = rws.rwkv6_scan_plain(r, k, v, logw, u, s0)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, atol=5e-4, rtol=5e-4)
+
+
+def test_rglru_chunked_route_reads_strided_u(dev):
+    """The chunked route reads u through its strides too (a view whose
+    time stride is twice its width, past two chunks)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    u = _randn(gen, (2, 400, 96), torch.bfloat16, dev)[:, ::2, :64]
+    params = [_randn(gen, (64,), torch.float32, dev) * 0.1
+              for _ in range(5)]
+    h0 = _randn(gen, (2, 64), torch.float32, dev)
+    got = _on_route(rgs.rglru_scan, "chunked", u, *params, h0)
+    for g, w_ in zip(got, rgs.rglru_scan_plain(u, *params, h0)):
+        torch.testing.assert_close(g, w_, atol=2e-5, rtol=2e-5)
+
+
+def _on_route(fn, route, *args):
+    """fn(*args) through the wrapper, which must count one launch, on
+    `route`."""
+    before, launches = dict(fn.routes), fn.launches
+    out = fn(*args)
+    assert fn.launches == launches + 1
+    assert {k: fn.routes[k] - before[k] for k in fn.routes} == {
+        k: int(k == route) for k in fn.routes}
+    return out
+
+
+def _unaligned(x):
+    """A contiguous copy of x whose data starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:].copy_(x.flatten())
+    return flat[1:].view(x.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,t,h,n,start,strong", [
+    (1, 1, 2, 16, True, False), (2, 7, 4, 64, True, False),
+    (2, 37, 4, 16, False, False), (1, 100, 3, 32, True, False),
+    (1, 777, 4, 64, True, False), (2, 100, 2, 64, True, True)])
+def test_rwkv6_kernel_routes_match_plain(dev, dtype, aligned, b, t, h, n,
+                                         start, strong):
+    """Both routes at ragged T (below a sub-chunk too), from zero and from
+    a state, and at strong decay (logw down to -20 a step), each picked by
+    the wrapper: the chunked one from T 32 with 16-byte aligned operands,
+    the step one below it and for an unaligned view at any T."""
+    gen = torch.Generator(device=dev).manual_seed(b + t + h + n)
+    r, k, v = (_randn(gen, (b, t, h, n), dtype, dev) for _ in range(3))
+    if not aligned:
+        r, k, v = _unaligned(r), _unaligned(k), _unaligned(v)
+    if strong:
+        logw = -20.0 * torch.rand((b, t, h, n), generator=gen, device=dev)
+    else:
+        logw = -torch.exp(_randn(gen, (b, t, h, n), torch.float32, dev) *
+                          0.5)
+    u = _randn(gen, (h, n), torch.float32, dev) * 0.1
+    s0 = _randn(gen, (b, h, n, n), torch.float32, dev) if start else None
+    route = "chunked" if aligned and t >= 2 * rws.SUB_CHUNK else "step"
+    got = _on_route(rws.rwkv6_scan, route, r, k, v, logw, u, s0)
+    want = rws.rwkv6_scan_plain(r, k, v, logw, u, s0)
+    for g, w_ in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w_, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w,start,strong", [
+    (2, 65, 200, True, False), (1, 100, 4096, False, False),
+    (1, 777, 512, True, False), (2, 2040, 256, True, False),
+    (1, 300, 512, True, True), (2, 64, 200, True, False),
+    (8, 1, 4096, True, False), (1, 37, 512, False, False),
+    (2, 50, 512, True, True), (1, 7, 4096, True, False)])
+def test_rglru_kernel_routes_match_plain(dev, dtype, b, t, w, start,
+                                         strong):
+    """Both routes, each picked by the wrapper (chunked past one 64-step
+    chunk, step up to it), at ragged T, from zero and from h0, and at
+    strong decay (lam 6, r near 1)."""
+    gen = torch.Generator(device=dev).manual_seed(b * t + w)
+    u = _randn(gen, (b, t, w), dtype, dev)
+    params = [_randn(gen, (w,), torch.float32, dev) * 0.1 for _ in range(4)]
+    params.append(torch.linspace(2.0, 6.0, w, device=dev))
+    if strong:
+        params[1] = params[1] + 8.0
+        params[4] = torch.full((w,), 6.0, device=dev)
+    h0 = _randn(gen, (b, w), torch.float32, dev) if start else None
+    route = "chunked" if t > rgs.CHUNK else "step"
+    got = _on_route(rgs.rglru_scan, route, u, *params, h0)
+    want = rgs.rglru_scan_plain(u, *params, h0)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=2e-5, rtol=2e-5)
+
+
+def test_scan_wrappers_pick_and_count_routes(dev):
+    """A prefill takes the chunked route, a decode step (T 1) the step
+    route, and so does an unaligned WKV prefill; the wrappers count each
+    launch under the route it took."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f = lambda *shape: _randn(gen, shape, torch.bfloat16, dev)
+    x = lambda *shape: _randn(gen, shape, torch.float32, dev)
+    params = [x(256) * 0.1 for _ in range(4)] + [
+        torch.linspace(2.0, 6.0, 256, device=dev)]
+    for t, route in ((100, "chunked"), (1, "step")):
+        _on_route(rgs.rglru_scan, route, f(1, t, 256), *params, x(1, 256))
+        _on_route(rws.rwkv6_scan, route, f(1, t, 2, 64), f(1, t, 2, 64),
+                  f(1, t, 2, 64), -torch.exp(x(1, t, 2, 64) * 0.5),
+                  x(2, 64) * 0.1, x(1, 2, 64, 64))
+    _on_route(rws.rwkv6_scan, "step", _unaligned(f(1, 100, 2, 64)),
+              f(1, 100, 2, 64), f(1, 100, 2, 64),
+              -torch.exp(x(1, 100, 2, 64) * 0.5), x(2, 64) * 0.1)
 
 
 def test_scan_kernels_refuse_what_they_do_not_take(dev):
