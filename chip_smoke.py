@@ -3,7 +3,11 @@
 
 Run it from the root of a checkout on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(`--parent` names a checkout of another commit, e.g. the parent unpacked
+with `git archive`, whose window kernel is then timed beside this one's
+on the same inputs.)
 
 It builds the port's six kernel sources from
 `src/repro_torch/kernels/csrc/` with `nvcc` (one process per source, all
@@ -11,13 +15,20 @@ started together).
 
 The simulator slice: it holds both entry points of the window kernel
 (`window_grid`, `window_cell`) against their plain PyTorch versions on the
-card bit for bit, and then drives the simulator's main path at the
-paper's full size through the entry points a user calls: the fig7 grid
-and the P=4 fleet sweep through `simulator.sweep_fleet`, a serving
-session of resumed `simulate_many` epochs, and the fig6/fig4/fig5/
-bitstream benchmarks.  Every figure's rows must equal, as text, the rows
-the JAX package's `benchmarks/` print at full size on the CPU (sha1
-digests below), and the derived anchors must hold.
+card bit for bit, on both kernel routes ("bitset" at 7, 29 and 32 tags,
+"generic" at 33; windows around a warp and a pass), and then drives the
+simulator's main path at the paper's full size through the entry points
+a user calls: the fig7 grid and the P=4 fleet sweep through
+`simulator.sweep_fleet`, a serving session of resumed `simulate_many`
+epochs, and the fig6/fig4/fig5/bitstream benchmarks; every window launch
+there must take the bitset route.  Every figure's rows must equal, as
+text, the rows the JAX package's `benchmarks/` print at full size on the
+CPU (sha1 digests below), and the derived anchors must hold.  The fig7
+and serving phases split their wall time (`host_split`: trace build,
+stream gather, copies to the card, state translation, the rest), and the
+window timings give each main-path shape (fig7 grid, P=4 fleet grid,
+serving epoch) its event and profiler device time, bound, plain time and
+the slowest cell's trips, passes and device ns a pass.
 
 The dense-model slice: it holds the flash and decode attention kernels
 against their plain versions (bf16 and f32, head dims 64/128, GQA, MQA,
@@ -646,24 +657,41 @@ def phase_build() -> None:
         libs = {name: os.path.relpath(f.result(), ROOT)
                 for name, f in futs.items()}
     secs = round(time.perf_counter() - t0, 3)
-    emit("build", seconds=secs, library=libs.pop("window_distance"))
+    from repro_torch.kernels import common
+    emit("build", seconds=secs, library=libs.pop("window_distance"),
+         ptxas=common.ptxas_report(wd.SOURCE))
     emit("build_moe", seconds=secs, library=libs.pop("moe_gmm"))
     emit("build_recurrent", seconds=secs,
          libraries={k: libs.pop(k) for k in ("rglru_scan", "rwkv6_scan")})
-    from repro_torch.kernels import common
     emit("build_attention", seconds=secs, libraries=libs,
          ptxas={name: common.ptxas_report(mod.SOURCE)
                 for name, mod in mods if name in libs})
 
 
 QUANTUM_MENU = (6, 37, 120, 1 << 30)
-WINDOWS = (1, 13, 64, 200, 512, 2048)
+# windows of 1 and 13 rows leave most of a pass idle; 31-33 straddle a warp
+# sub-chunk, 256/257 a pass of the bitset route
+WINDOWS = (1, 13, 31, 32, 33, 64, 200, 256, 257, 512, 2048)
+CHECK_TAGS = (7, 29, 32, 33)        # 32: the bitset route's widest; 33 not
 CHECK_TRACE_LEN, CHECK_STEPS = 300, 1_200
+
+
+def _routes_since(before: dict, fn) -> dict:
+    return {r: n - before[r] for r, n in fn.routes.items()}
+
+
+def _check_routes(fn, before: dict, launches: int, what: str) -> dict:
+    """Every launch of `fn` since `before` took the bitset route."""
+    taken = _routes_since(before, fn)
+    check(taken == {"bitset": launches, "generic": 0},
+          f"{what}: routes {taken} for {launches} launches")
+    return taken
 
 
 def phase_kernel_vs_plain(dev, errs: dict) -> None:
     """Seeded random small grids and cells: the kernel against its plain
-    version, every field equal bit for bit."""
+    version, every field equal bit for bit, on the route each alphabet
+    takes (bitset up to 32 tags, generic at 33)."""
     from repro_torch.core import simulator
     from repro_torch.kernels import window_distance as wd
     rng = np.random.default_rng(2024)
@@ -671,7 +699,10 @@ def phase_kernel_vs_plain(dev, errs: dict) -> None:
     p, trace_len, steps = 3, CHECK_TRACE_LEN, CHECK_STEPS
     sched = t(simulator.priority_schedule((2, 1, 3), p))     # weighted
     cases = 0
-    for num_tags in (7, 29):
+    before = {fn.__name__: dict(fn.routes)
+              for fn in (wd.window_grid, wd.window_cell)}
+    t0 = time.perf_counter()
+    for num_tags in CHECK_TAGS:
         for window in WINDOWS:
             ptags = t(rng.integers(-1, num_tags, (3, p, trace_len)))
             pcosts = t(rng.integers(0, 9, (3, p, trace_len)))
@@ -709,24 +740,94 @@ def phase_kernel_vs_plain(dev, errs: dict) -> None:
                             f"window_cell {mode} T={num_tags} W={window}")
                 cases += 1
     torch.cuda.synchronize()
+    routes = {fn.__name__: _routes_since(before[fn.__name__], fn)
+              for fn in (wd.window_grid, wd.window_cell)}
+    # one grid and three cells (unseeded, seeded, materialise) a case
+    per_case = {"window_grid": 1, "window_cell": 3}
+    for name, taken in routes.items():
+        want = {r: per_case[name] * len(WINDOWS) *
+                sum(wd.route(x, p) == r for x in CHECK_TAGS)
+                for r in wd.ROUTES}
+        check(taken == want, f"kernel_vs_plain {name} routes {taken}, "
+                             f"expected {want}")
     emit("kernel_vs_plain", cases=cases, windows=list(WINDOWS),
-         num_tags=[7, 29], match=True)
+         num_tags=list(CHECK_TAGS), routes=routes, match=True,
+         seconds=round(time.perf_counter() - t0, 3))
 
 
-def phase_fig7(dev, errs: dict) -> None:
+# The host functions of the simulator slice whose wall time the fig7 and
+# serving phases split out: trace build, stream gather, int32 tensors made
+# on the card (the traces' copy among them), the state translation.
+HOST_SPANS = {
+    "trace_build": ("repro_torch.core.scheduler", "fleet_traces"),
+    "stream_gather": ("repro_torch.core.stackdist_interleaved",
+                      "_gather_streams"),
+    "to_card": ("repro_torch.core.simulator", "_i32"),
+    "seed_carry": ("repro_torch.core.simulator", "_seed_carry"),
+    "state_from_final": ("repro_torch.core.simulator", "_state_from_final"),
+}
+
+
+@contextlib.contextmanager
+def host_split():
+    """Time each function of `HOST_SPANS` while the block runs, patched in
+    its module: {span: {"s", "calls"}}, plus "total_s" of the block.  A
+    call runs between two synchronisations, so the card's work it launched
+    counts in it; a call made inside another timed call counts in the
+    outer one only."""
+    import importlib
+    split, patched, depth = {}, [], [0]
+    for name, (mod_name, attr) in HOST_SPANS.items():
+        mod = importlib.import_module(mod_name)
+        real = getattr(mod, attr)
+        span = split[name] = {"s": 0.0, "calls": 0}
+
+        def timed(*a, _real=real, _span=span, **kw):
+            if depth[0]:
+                return _real(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = _real(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
+            _span["s"] += time.perf_counter() - t0
+            _span["calls"] += 1
+            return out
+
+        setattr(mod, attr, timed)
+        patched.append((mod, attr, real))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        yield split
+        torch.cuda.synchronize()
+        split["total_s"] = time.perf_counter() - t0
+    finally:
+        for mod, attr, real in patched:
+            setattr(mod, attr, real)
+
+
+def phase_fig7(dev, errs: dict) -> dict:
+    """The fig7 grid through `fig7_multi.sweep` (one `window_grid`
+    launch), its wall time split by `host_split`; returns the split."""
     from repro_torch import bench
     from repro_torch.bench import fig7_multi
     from repro_torch.core import scheduler
     from repro_torch.kernels import window_distance as wd
     pairs = scheduler.make_pairs()
     before = wd.window_grid.launches
+    routes = dict(wd.window_grid.routes)
     with engine_calls("_sweep_fleet_interleaved") as fleets:
-        t0 = time.perf_counter()
-        res = fig7_multi.sweep(pairs, device=dev)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        with host_split() as split:
+            res = fig7_multi.sweep(pairs, device=dev)
+        secs = split["total_s"]
     check(fleets == [len(pairs)], f"fig7 interleaved calls {fleets}")
     check(wd.window_grid.launches > before, "fig7 launched no window_grid")
+    taken = _check_routes(wd.window_grid, routes,
+                          wd.window_grid.launches - before, "fig7")
     t0 = time.perf_counter()
     plain = fig7_multi.sweep(pairs, device=dev, use_kernel="plain")
     torch.cuda.synchronize()
@@ -742,7 +843,9 @@ def phase_fig7(dev, errs: dict) -> None:
          engine="interleaved",
          sweep_s=round(secs, 3), plain_sweep_s=round(plain_secs, 3),
          rows_match_jax=True, grid_matches_plain=True,
-         window_grid_launches=wd.window_grid.launches - before)
+         window_grid_launches=wd.window_grid.launches - before,
+         routes=taken)
+    return split
 
 
 def phase_fleet_sweep(dev, errs: dict) -> None:
@@ -750,6 +853,7 @@ def phase_fleet_sweep(dev, errs: dict) -> None:
     from repro_torch.bench import fig7_multi
     from repro_torch.kernels import window_distance as wd
     before = wd.window_grid.launches
+    routes = dict(wd.window_grid.routes)
     with engine_calls("_sweep_fleet_interleaved") as fleets:
         t0 = time.perf_counter()
         res = fig7_multi.sweep_fleets(device=dev)
@@ -758,6 +862,8 @@ def phase_fleet_sweep(dev, errs: dict) -> None:
         secs = time.perf_counter() - t0
     check(fleets == [24], f"fleet sweep interleaved calls {fleets}")
     check(wd.window_grid.launches > before, "fleet sweep launched nothing")
+    taken = _check_routes(wd.window_grid, routes,
+                          wd.window_grid.launches - before, "fleet sweep")
     t0 = time.perf_counter()
     plain = fig7_multi.sweep_fleets(device=dev, use_kernel="plain")
     torch.cuda.synchronize()
@@ -772,7 +878,8 @@ def phase_fleet_sweep(dev, errs: dict) -> None:
          engine="interleaved", seconds=round(secs, 3),
          plain_sweep_s=round(plain_secs, 3), rows_match_jax=True,
          grid_matches_plain=True,
-         window_grid_launches=wd.window_grid.launches - before)
+         window_grid_launches=wd.window_grid.launches - before,
+         routes=taken)
 
 
 SERVE_EPOCHS, SERVE_EPOCH_STEPS = 20, 6_000
@@ -788,13 +895,13 @@ def serve_setup():
     return fleet, traces, cfg, isa.SCENARIO_2, sched
 
 
-def phase_serve(dev, errs: dict) -> None:
+def phase_serve(dev, errs: dict) -> dict:
     """A P=4 fleet served in epochs: each epoch resumes the carried
     `FleetState` (`OnlineConfig.epoch_steps` style), which rides the
-    seeded/materialising window kernel."""
+    seeded/materialising window kernel.  The set-up and the epochs run
+    under `host_split`; returns the split."""
     from repro_torch.core import simulator
     from repro_torch.kernels import window_distance as wd
-    fleet, traces, cfg, scen, sched = serve_setup()
 
     def epochs(use_kernel):
         state = simulator.init_fleet_state(4, cfg.num_slots, device=dev)
@@ -809,10 +916,14 @@ def phase_serve(dev, errs: dict) -> None:
         return res, state, mid
 
     before = wd.window_cell.launches
-    t0 = time.perf_counter()
-    res, state, mid = epochs(None)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    routes = dict(wd.window_cell.routes)
+    with host_split() as split:
+        fleet, traces, cfg, scen, sched = serve_setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, state, mid = epochs(None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     check(wd.window_cell.launches - before == SERVE_EPOCHS,
           f"serve epochs launched {wd.window_cell.launches - before} cells")
     total = SERVE_EPOCHS * SERVE_EPOCH_STEPS
@@ -835,12 +946,15 @@ def phase_serve(dev, errs: dict) -> None:
                                    device=dev)
     assert_same(fast[0], scan[0], "segment vs scan reference machine")
     check(states_equal(fast[1], scan[1]), "segment state != scan state")
+    launches = wd.window_cell.launches - before
+    taken = _check_routes(wd.window_cell, routes, launches, "serve")
     emit("serve", fleet="+".join(fleet), epochs=SERVE_EPOCHS,
          epoch_steps=SERVE_EPOCH_STEPS, seconds=round(secs, 3),
          cpi=[round(float(x), 4) for x in res.cpi.cpu()],
          switches=int(res.switches), matches_one_shot=True,
          matches_plain=True, scan_segment_steps=seg,
-         window_cell_launches=wd.window_cell.launches - before)
+         window_cell_launches=launches, routes=taken)
+    return split
 
 
 def phase_benches(dev) -> None:
@@ -889,19 +1003,16 @@ def _bound_ms(stream_elems: int, other_bytes: int, accesses: int,
                                        else "bytes")
 
 
-def phase_timing(dev, errs: dict) -> dict:
-    """Kernel and plain times at the main path's shapes: `window_grid` at
-    the fig7 grid (and the P=4 fleet grid), `window_cell` at one serving
-    epoch."""
+def _window_inputs(dev) -> dict:
+    """The window kernel's operands on the main path: {row: (entry point
+    name, args, kwargs, num_tags, cells)} for the fig7 grid (50 pairs
+    padded to 52, 2 quanta x 3 slot counts), the P=4 fleet grid (24
+    fleets x 3 latencies at 4 slots) and one serving epoch (a seeded,
+    materialising cell of the P=4 fleet, five epochs in)."""
     from repro_torch.bench import fig7_multi
     from repro_torch.core import isa, scheduler, simulator
     from repro_torch.core import stackdist_interleaved as sdi
-    from repro_torch.kernels import window_distance as wd
     out = {}
-    int32_rate, rate_src = int32_ops_per_s()
-    emit("int32_rate", ops_per_s=int32_rate, source=rate_src,
-         hbm_bytes_per_s=HBM_BYTES_PER_S)
-    # fig7: 50 pairs padded to 52 (bucket of 4) x 2 quanta x 3 slot counts
     pairs = scheduler.make_pairs()
     fl = torch.as_tensor(scheduler.fleet_traces(
         pairs + pairs[:1] * 2, fig7_multi.TRACE_LEN), device=dev)
@@ -909,31 +1020,37 @@ def phase_timing(dev, errs: dict) -> dict:
     ptags, pcosts = sdi._gather_streams(fl, table, isa.INSTR_HW_CYCLES)
     quanta = torch.tensor([[q, q] for q in fig7_multi.QUANTA],
                           dtype=torch.int32, device=dev)
-    num_tags = int(table.max()) + 1
-    window = simulator._interleaved_window(quanta.cpu().numpy(),
-                                           fig7_multi.TOTAL_STEPS, None, dev)
+    sched = simulator.SchedulerConfig()
     args = (ptags, pcosts, list(fig7_multi.SLOT_COUNTS),
             [fig7_multi.MISS_LATENCY], quanta,
-            torch.arange(2, dtype=torch.int32, device=dev), 150, 100)
-    kw = dict(num_tags=num_tags, total_steps=fig7_multi.TOTAL_STEPS,
-              window=window)
-    got = wd.window_grid(*args, **kw)
-    want = wd.window_grid_plain(*args, **kw)
-    errs["window_grid"] = max(errs["window_grid"], max_err(got, want))
-    assert_same(got, want, "fig7 timing inputs")
-    cells = got[4].numel()
-    ms = cuda_ms(lambda: wd.window_grid(*args, **kw), 5)
-    plain_ms = cuda_ms(lambda: wd.window_grid_plain(*args, **kw), 1)
-    num_progs = ptags.shape[1]
-    bound, by = _bound_ms(ptags.numel(), 4 * cells * (4 * num_progs + 1),
-                          cells * fig7_multi.TOTAL_STEPS, num_tags,
-                          int32_rate)
-    out["window_grid"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=by, shape="fig7", cells=cells,
-                              window=window)
-    emit("time_window_grid", **out["window_grid"])
+            torch.as_tensor(sched.schedule(2), device=dev),
+            sched.handler_cycles, 100)
+    kw = dict(num_tags=int(table.max()) + 1,
+              total_steps=fig7_multi.TOTAL_STEPS,
+              window=simulator._interleaved_window(
+                  quanta.cpu().numpy(), fig7_multi.TOTAL_STEPS, None, dev))
+    out["fig7"] = ("window_grid", args, kw,
+                   quanta.shape[0] * fl.shape[0] * 3)
 
-    # one serving epoch: a seeded, materialising cell of the P=4 fleet
+    fleets = fig7_multi._fleets(fig7_multi.FLEET_K, 24)
+    fl = torch.as_tensor(scheduler.fleet_traces(
+        fleets, fig7_multi.TRACE_LEN), device=dev)
+    table = simulator.fleet_tag_table(isa.SCENARIO_2, fig7_multi.FLEET_K)
+    ptags, pcosts = sdi._gather_streams(fl, table, isa.INSTR_HW_CYCLES)
+    sched = simulator.SchedulerConfig(quantum_cycles=20_000)
+    quanta = torch.as_tensor(sched.quanta(fig7_multi.FLEET_K)[None, :],
+                             device=dev)
+    args = (ptags, pcosts, [4], list(fig7_multi.FLEET_LATENCIES), quanta,
+            torch.as_tensor(sched.schedule(fig7_multi.FLEET_K), device=dev),
+            sched.handler_cycles, 100)
+    kw = dict(num_tags=int(table.max()) + 1,
+              total_steps=fig7_multi.FLEET_TOTAL_STEPS,
+              window=simulator._interleaved_window(
+                  quanta.cpu().numpy(), fig7_multi.FLEET_TOTAL_STEPS, None,
+                  dev))
+    out["fleet"] = ("window_grid", args, kw,
+                    fl.shape[0] * len(fig7_multi.FLEET_LATENCIES))
+
     fleet, traces, cfg, scen, sched = serve_setup()
     state = simulator.init_fleet_state(4, cfg.num_slots, device=dev)
     _, state = simulator.simulate_many(
@@ -955,19 +1072,107 @@ def phase_timing(dev, errs: dict) -> dict:
               seed.switches))
     ckw = dict(num_tags=cnum_tags, total_steps=SERVE_EPOCH_STEPS, window=cw,
                seeded=True, materialise=True)
-    got = wd.window_cell(*cargs, **ckw)
-    want = wd.window_cell_plain(*cargs, **ckw)
-    errs["window_cell"] = max(errs["window_cell"], max_err(got, want))
-    assert_same(got, want, "serving-epoch timing inputs")
-    ms = cuda_ms(lambda: wd.window_cell(*cargs, **ckw), 50)
-    plain_ms = cuda_ms(lambda: wd.window_cell_plain(*cargs, **ckw), 3)
-    # outputs: 2 tag vectors, 5 program vectors, 4 scalars; the seed
-    bound, by = _bound_ms(ct.numel(), 4 * 2 * (cnum_tags + 5 * 4 + 4),
-                          SERVE_EPOCH_STEPS, cnum_tags, int32_rate)
-    out["window_cell"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=by, shape="serving epoch",
-                              window=cw, steps=SERVE_EPOCH_STEPS)
-    emit("time_window_cell", **out["window_cell"])
+    out["serve"] = ("window_cell", cargs, ckw, 1)
+    return out
+
+
+# CUDA-event and profiler repetitions of each timed window row
+WINDOW_REPS = {"fig7": (5, 5), "fleet": (5, 5), "serve": (50, 20)}
+
+
+def _time_window(wd, row: str, inputs: dict) -> dict:
+    """Event and profiler times of one window row through `wd`'s entry
+    point (the port's, or the parent tree's)."""
+    name, args, kw, _ = inputs[row]
+    fn = getattr(wd, name)
+    reps, dev_reps = WINDOW_REPS[row]
+    ms = cuda_ms(lambda: fn(*args, **kw), reps)
+    dms, kept = device_ms(lambda: fn(*args, **kw), dev_reps)
+    return dict(ms=ms, device_ms=dms, profiler_records_kept=kept)
+
+
+def load_parent_window(parent: str):
+    """The window wrapper of another checkout (the parent commit, for
+    timing beside this one): its `kernels/window_distance.py` loaded
+    under its own name; it builds its own `csrc/window_distance.cu`."""
+    import importlib.util
+    path = os.path.join(os.path.abspath(parent), "src", "repro_torch",
+                        "kernels", "window_distance.py")
+    spec = importlib.util.spec_from_file_location("parent_window_distance",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_timing(dev, errs: dict, splits: dict, parent=None) -> dict:
+    """Kernel and plain times at the main path's shapes: `window_grid` at
+    the fig7 grid and at the P=4 fleet grid, `window_cell` at one serving
+    epoch.  Each row: CUDA-event ms (the wrapper's host work included),
+    profiler device ms, the plain version's ms, the throughput bound, the
+    route, and the slowest cell's window trips and passes with the device
+    ns a pass; with `parent` (a checkout), the parent wrapper's event and
+    device ms on the same inputs, held equal first.  Then the host split
+    of the fig7 and serving phases (`splits`), with the kernel's device
+    time (launches x the device ms of its row) and the rest."""
+    from repro_torch.kernels import window_distance as wd
+    out = {}
+    int32_rate, rate_src = int32_ops_per_s()
+    emit("int32_rate", ops_per_s=int32_rate, source=rate_src,
+         hbm_bytes_per_s=HBM_BYTES_PER_S)
+    inputs = _window_inputs(dev)
+    for row, (name, args, kw, cells) in inputs.items():
+        fn, plain = getattr(wd, name), getattr(wd, f"{name}_plain")
+        key = name if row != "fleet" else "window_grid_fleet"
+        stats = []
+        before = dict(fn.routes)
+        got = fn(*args, **kw, stats=stats)
+        taken = _routes_since(before, fn)
+        check(taken == {"bitset": 1, "generic": 0},
+              f"{row} timing inputs took {taken}")
+        want = plain(*args, **kw)
+        errs[name] = max(errs[name], max_err(got, want))
+        assert_same(got, want, f"{row} timing inputs")
+        trips, passes = max(stats, key=lambda tp: tp[1])
+        check(len(stats) == cells and passes > 0, f"{row} stats {stats}")
+        times = _time_window(wd, row, inputs)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 1 if row != "serve"
+                           else 3)
+        num_tags, steps = kw["num_tags"], kw["total_steps"]
+        ptags = args[0]
+        if name == "window_grid":
+            other = 4 * cells * (4 * ptags.shape[1] + 1)
+        else:   # 2 tag vectors, 5 program vectors, 4 scalars; the seed
+            other = 4 * 2 * (num_tags + 5 * 4 + 4)
+        bound, by = _bound_ms(ptags.numel(), other, cells * steps, num_tags,
+                              int32_rate)
+        out[key] = dict(**times, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, route="bitset", cells=cells,
+                        window=kw["window"], steps=steps,
+                        slowest_cell_trips=trips,
+                        slowest_cell_passes=passes,
+                        ns_per_pass=(None if times["device_ms"] is None
+                                     else times["device_ms"] * 1e6 / passes),
+                        shape={"fig7": "fig7", "fleet": "P=4 fleet",
+                               "serve": "serving epoch"}[row])
+        if parent is not None:
+            assert_same(getattr(parent, name)(*args, **kw), want,
+                        f"{row}: the parent kernel")
+            out[key]["parent"] = _time_window(parent, row, inputs)
+        emit(f"time_{key}", **out[key])
+
+    # where the wall time of the fig7 sweep and of the serving epochs goes
+    launches = {"fig7": ("window_grid", 1),
+                "serve": ("window_cell", SERVE_EPOCHS)}
+    for phase, split in splits.items():
+        name, n = launches[phase]
+        dms = out[name]["device_ms"]
+        kernel_s = None if dms is None else n * dms / 1e3
+        spans = {k: v for k, v in split.items() if k != "total_s"}
+        rest = split["total_s"] - sum(v["s"] for v in spans.values()) - (
+            kernel_s or 0.0)
+        emit(f"host_split_{phase}", total_s=split["total_s"], **spans,
+             kernel_device_s=kernel_s, kernel_launches=n, rest_s=rest)
     return out
 
 
@@ -2626,33 +2831,47 @@ def phase_recurrent(dev, attn_errs: dict) -> tuple[list, dict]:
 
 
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of another commit (the parent) whose "
+                         "window kernel is timed beside this one's")
+    opts = ap.parse_args()
     load_port()
     card = phase_device()
     from repro_torch.kernels import window_distance as wd
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase_build()
+    parent = None if opts.parent is None else load_parent_window(opts.parent)
     errs = {"window_grid": 0, "window_cell": 0}
     phase_kernel_vs_plain(dev, errs)
 
     # the main path: counts from 0, read right after it
-    wd.window_grid.launches = 0
-    wd.window_cell.launches = 0
-    phase_fig7(dev, errs)
+    for fn in (wd.window_grid, wd.window_cell):
+        fn.launches = 0
+        fn.routes = dict.fromkeys(wd.ROUTES, 0)
+    splits = {"fig7": phase_fig7(dev, errs)}
     phase_fleet_sweep(dev, errs)
-    phase_serve(dev, errs)
+    splits["serve"] = phase_serve(dev, errs)
     phase_benches(dev)
     launches = {"window_grid": wd.window_grid.launches,
                 "window_cell": wd.window_cell.launches}
+    routes = {"window_grid": dict(wd.window_grid.routes),
+              "window_cell": dict(wd.window_cell.routes)}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
-    emit("main_path", launches=launches)
+        check(routes[name] == {"bitset": n, "generic": 0},
+              f"{name}'s main-path routes {routes[name]}")
+    emit("main_path", launches=launches, routes=routes)
 
-    times = phase_timing(dev, errs)
+    times = phase_timing(dev, errs, splits, parent)
     for name, err in errs.items():
         check(err == 0, f"{name} differs from its plain version by {err}")
     replaces = {"window_grid": "src/repro/kernels/window_distance.py:325",
                 "window_cell": "src/repro/kernels/window_distance.py:438"}
+    row_keys = ("device_ms", "profiler_records_kept", "slowest_cell_trips",
+                "slowest_cell_passes", "ns_per_pass", "parent")
     kernels = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/window_distance.cu",
@@ -2661,7 +2880,11 @@ def main() -> None:
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"], "library_ms": None,
-        "match": True, "shape": times[name]["shape"]}
+        "match": True, "shape": times[name]["shape"],
+        "routes": routes[name],
+        **{k: times[name][k] for k in row_keys if k in times[name]},
+        **({"fleet": times["window_grid_fleet"]}
+           if name == "window_grid" else {})}
         for name in ("window_grid", "window_cell")]
 
     # the dense-model slice

@@ -5,7 +5,8 @@ Each kernel is one CUDA C++ source under `csrc/` with a plain C entry
 point.  `build` compiles it for `sm_90a` at first use, into a shared
 library named by the sha1 of the source, its local headers and the flags
 (so a changed source builds anew and concurrent builds race safely),
-and `library` loads it with `ctypes`.  Nothing here runs at import: the
+and `library` loads it with `ctypes`.  A source that needs flags of its
+own beyond `NVCC_FLAGS` names them on a line `// nvcc-flags: ...`.  Nothing here runs at import: the
 CPU has no `nvcc`, and the CPU tests import every module.
 """
 from __future__ import annotations
@@ -85,13 +86,22 @@ def _text_with_headers(source: str) -> bytes:
     return out
 
 
+def _source_flags(source: str) -> list[str]:
+    """The flags a source asks for on its `// nvcc-flags:` lines."""
+    with open(source) as f:
+        return [flag for line in f for flag in (
+            line[len("// nvcc-flags:"):].split()
+            if line.startswith("// nvcc-flags:") else ())]
+
+
 def build(source: str, verbose: bool = False) -> str:
     """Compile `source` (a `csrc/*.cu` file) into `kernels/build/` (once
     per source content) and return the shared library's path.  With
     `verbose`, print what `-Xptxas=-v` reports (registers, shared memory,
     spills) when it compiles."""
+    flags = NVCC_FLAGS + _source_flags(source)
     digest = hashlib.sha1(_text_with_headers(source) +
-                          " ".join(NVCC_FLAGS).encode())
+                          " ".join(flags).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     lib = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
     if os.path.exists(lib):
@@ -100,7 +110,7 @@ def build(source: str, verbose: bool = False) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
+        cmd = [_nvcc(), *flags, "-o", tmp, source]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
         r = subprocess.run(cmd, capture_output=True, text=True)

@@ -1,6 +1,8 @@
 """Card-only checks of the port's CUDA kernels against their plain
-PyTorch versions: the window kernel bit for bit, plus the sweep and resume
-paths that launch it; the flash and decode attention kernels within the
+PyTorch versions: the window kernel bit for bit on both its routes
+("bitset" up to 32 tags, "generic" above; each launch's route counted, the
+bitset route's trips and passes equal to its plain model's), plus the sweep
+and resume paths that launch it; the flash and decode attention kernels within the
 tolerances of test_kernels.py (2e-5 in f32, 2e-2 in bf16), plus the model
 path that launches them, and both flash routes' exact zeros on rows
 that see no key; the grouped-FFN kernel (`moe_gmm`, `moe_gmm_skip`)
@@ -36,7 +38,7 @@ from repro_torch.models import transformer
 pytestmark = pytest.mark.cuda
 
 QUANTUM_MENU = (6, 37, 120, 1 << 30)
-WINDOWS = (1, 13, 64, 200, 512, 2048)
+WINDOWS = (1, 13, 31, 32, 33, 64, 200, 256, 257, 512, 2048)
 
 
 @pytest.fixture
@@ -145,6 +147,78 @@ def test_kernel_refuses_what_shared_memory_cannot_hold(dev):
     with pytest.raises(ValueError, match="shared memory"):
         wd.window_grid(tags, tags, one, one, one.reshape(1, 1), one - 1, 0,
                        0, num_tags=10_000, total_steps=4, window=4)
+
+
+def test_bitset_route_refuses_rings_shared_memory_cannot_hold(dev):
+    """32 programs at a 2,048-row window: 32 rings of 4,096 rows, 1 MB."""
+    tags = torch.zeros((1, 32, 8), dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    before = dict(wd.window_grid.routes)
+    with pytest.raises(ValueError, match="stream rings"):
+        wd.window_grid(tags, tags, one, one,
+                       torch.ones((1, 32), dtype=torch.int32, device=dev),
+                       torch.arange(32, dtype=torch.int32, device=dev), 0, 0,
+                       num_tags=10, total_steps=4_096, window=2_048)
+    assert wd.window_grid.routes == before
+
+
+# (num_tags, route): the bitset route's fig7 alphabet, the simulator's
+# widest, the word's limit; the generic route just past it and far past it
+ROUTE_CASES = ((10, "bitset"), (29, "bitset"), (32, "bitset"),
+               (33, "generic"), (61, "generic"))
+
+
+@pytest.mark.parametrize("window", (1, 33, 257))
+@pytest.mark.parametrize("num_tags,route", ROUTE_CASES)
+def test_window_routes_match_plain(dev, num_tags, route, window):
+    """Both entry points on the route the alphabet selects, every field
+    equal to the plain version, the launch counted on that route."""
+    assert wd.route(num_tags, 3) == route
+    rng = np.random.default_rng(num_tags * 97 + window)
+    tags, costs, quanta, sched = _case(rng, 3, num_tags, 300, dev)
+    seed = _seed(rng, 3, num_tags, 300, dev)
+    kw = dict(num_tags=num_tags, total_steps=1_500, window=window)
+    args = (tags, costs, 4, 41, quanta, sched, 9, 17, seed)
+    before = dict(wd.window_cell.routes)
+    got = wd.window_cell(*args, **kw)
+    assert wd.window_cell.routes[route] == before[route] + 1
+    want = wd.window_cell_plain(*args, **kw)
+    gargs = (tags[None].expand(2, -1, -1).contiguous(),
+             costs[None].expand(2, -1, -1).contiguous(),
+             [1, 4, 8], [0, 73], torch.stack([quanta, quanta * 0 + 37]),
+             sched, 11, 23)
+    gkw = dict(num_tags=num_tags, total_steps=1_500, window=window)
+    before = dict(wd.window_grid.routes)
+    ggot = wd.window_grid(*gargs, **gkw)
+    assert wd.window_grid.routes[route] == before[route] + 1
+    gwant = wd.window_grid_plain(*gargs, **gkw)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got + ggot, want + gwant)):
+        assert torch.equal(g.cpu(), w.cpu()), f"field {i}"
+
+
+@pytest.mark.parametrize("window", (13, 257, 512))
+def test_bitset_stats_match_the_plain_model(dev, window):
+    """The kernel's trips and passes per cell equal those of
+    `window_loop_bitset_plain`, which models its blocking."""
+    rng = np.random.default_rng(window)
+    tags, costs, quanta, sched = _case(rng, 3, 10, 300, dev)
+    quanta = torch.stack([quanta, torch.full_like(quanta, 1 << 30)])
+    args = (tags[None], costs[None], [2, 4], [50], quanta, sched, 11, 23)
+    kw = dict(num_tags=10, total_steps=2_000, window=window)
+    stats = []
+    got = wd.window_grid(*args, **kw, stats=stats)
+    q, b, k, l = wd._grid_cells(2, 1, 2, 1, "cpu")
+    model = []
+    final = wd.window_loop_bitset_plain(
+        tags[None].cpu(), costs[None].cpu(), b,
+        torch.tensor([2, 4], dtype=torch.int32)[k],
+        torch.tensor([50], dtype=torch.int32)[l], quanta.cpu()[q],
+        sched.cpu(), 11, 23, wd.cold_carry(4, 3, 10, "cpu"),
+        total_steps=2_000, window=window, pos_base=0, materialise=False,
+        stats=model)
+    assert stats == model
+    assert torch.equal(got[4].reshape(-1).cpu(), final.switches)
 
 
 # ---------------------------------------------------------------------------
