@@ -11,14 +11,17 @@ on the same inputs.)
 
 It builds the port's six kernel sources from
 `src/repro_torch/kernels/csrc/` with `nvcc` (one process per source, all
-started together).
+started together).  Each line is stamped with the seconds since the
+script started (`t`).
 
 The simulator slice: it holds both entry points of the window kernel
-(`window_grid`, `window_cell`) against their plain PyTorch versions on the
-card bit for bit, on both kernel routes ("bitset" at 7, 29 and 32 tags,
-"generic" at 33; windows around a warp and a pass), and then drives the
-simulator's main path at the paper's full size through the entry points
-a user calls: the fig7 grid and the P=4 fleet sweep through
+(`window_grid`, `window_cell`) on the card against their plain PyTorch
+versions bit for bit, on seeded small grids and cells on both kernel
+routes ("bitset" at 7, 29 and 32 tags, "generic" at 33; windows around a
+warp and a pass; the plain results computed meanwhile by
+`PLAIN_WORKERS` host processes, the comparison made after the sched
+slice), and drives the simulator's main path at the paper's full size
+through the entry points a user calls: the fig7 grid and the P=4 fleet sweep through
 `simulator.sweep_fleet`, a serving session of resumed `simulate_many`
 epochs, and the fig6/fig4/fig5/bitstream benchmarks; every window launch
 there must take the bitset route.  Every figure's rows must equal, as
@@ -29,6 +32,35 @@ stream gather, copies to the card, state translation, the rest), and the
 window timings give each main-path shape (fig7 grid, P=4 fleet grid,
 serving epoch) its event and profiler device time, bound, plain time and
 the slowest cell's trips, passes and device ns a pass.
+
+The sched slice (`repro_torch.sched` and the serve engine's sched half)
+drives the window kernel on new paths, each phase counting its launches
+from 0 (every one must take the bitset route): `sched_placement` runs
+`placement_study` and `placement_search` (every candidate co-residency
+group priced through `window_grid`); `sched_online` runs `online_churn`
+and `chaos_serve` with its crash-restart parity (every seedable epoch and
+migration probe resumed through `window_cell`; the segments after an SEU
+or a flush, and those of a degraded core, on the reference machine,
+counted and timed); `sched_fleet_scale`, the slice's main path, serves
+`fleet_scale_study` at its full sizes (256, 512 and 1,000 tenants on 32,
+64 and 128 cores, both re-solve modes, its parity and sublinearity
+asserts included, no resumed segment on the reference machine), holds
+the window kernel to its plain version at the widest shapes that loop
+gave it (a cell's epoch and probe, a candidate-group grid), and splits
+its wall time (placement search, `sweep_fleet`, resumed epochs with
+`_seed_carry` and `_state_from_final`, the kernel's device time, the
+rest, and the least the split's own synchronisations cost);
+`sched_engine` runs `SlotServeEngine.plan_coresidency`,
+`apply_admission` and `serve_online` under a seeded `FaultPlan.storm`,
+then `perf_slot_decode`'s fleet rows (its slot half serves the reduced
+arctic's 16-wide heads, which the card's attention kernels do not take;
+the CPU test holds it).  Rows equal the JAX package's (sha1 digests below, from
+`tests/jax_sched_anchor.py`): as text, or on every field but the seconds
+(placement_search's, fleet_scale_study's rows and its reports: final
+cores, move and epoch logs, per-tenant metrics); the engine's plan and
+report as JSON; perf_slot_decode's fleet rows as text; and
+BENCH_fleet.json's anchors hold (1.075/1.075/1.113, 1.0768, 1.0441 with
+1 migration, 1.0377/1.0551/2.3480).
 
 The dense-model slice: it holds the flash and decode attention kernels
 against their plain versions (bf16 and f32, head dims 64/128, GQA, MQA,
@@ -88,7 +120,8 @@ route, every decode step on the step route).
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
 the `kernels` line (all eight kernels: launches on their slice's main
-path, times, bound, error) and
+path, the window rows' with the sched phases' added and split in
+`launches_by_slice`; times, bound, error) and
 `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the port's sources beside it, the script exits
@@ -100,11 +133,13 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -121,6 +156,18 @@ EXPECTED_ROWS = {
     "fig7": "bcd61f072b10912957a5d4ccd8c58d9aebaf9c0c",
     "fleet_sweep": "08d48b32c5e26b492338192081f7ce0d20974b2f",
     "bitstream_study": "e0049a55487c01d9307040bf4d2adeb0829f1ad7",
+    # the sched benchmarks (`tests/jax_sched_anchor.py`): rows as text, or
+    # every field but the seconds (`search_rows_held`, `fleet_rows_held`,
+    # `fleet_reports_held`), the engine's plan and report as JSON
+    "placement_study": "c48774d65508142da09a1c74677489164889a149",
+    "placement_search": "773a3a29cea41e8a02d455d96c6e40d0b2f21ee1",
+    "online_churn": "8ed16ba3aea2616849cb89835e684da84216d8a1",
+    "chaos_serve": "8ff4da8817db223bb01cf80d97a18b528c7a3f31",
+    "fleet_scale_rows": "e4724c544f3a55fc76fcd6ca2585bdac5845b5f1",
+    "fleet_scale_reports": "d0e7a1648113c3eefbd70648d832b8325c3033e8",
+    "perf_slot_decode_fleet": "c771e6fecf71018a56bff74e7662f23fb1077ea0",
+    "engine_plan": "23927f9e334602444799753147976d570ab8212d",
+    "engine_online": "7f0cf39bfdf601a9c8b8af4c9c17b40ca8feae62",
 }
 ANCHORS = {
     "fig4": "minver_speedup_F=27.50 (paper 27.5)",
@@ -129,6 +176,13 @@ ANCHORS = {
     "fig7": ("x3.13 over RV32I", "x1.39 over RV32IM", "x1.67 over RV32IF",
              "abs 0.81 of IMF"),
     "fleet_sweep": "P4_avg@10c=0.935; P4_avg@50c=0.757; P4_avg@250c=0.452",
+    # BENCH_fleet.json's sched anchors
+    "placement_study": ("P2 1.075 vs random", "P3 1.075 vs random",
+                        "P4 1.113 vs random"),
+    "placement_search": "worst-tenant slowdown 1.0768",
+    "online_churn": ("worst slowdown 1.0441", "with 1 migration(s)"),
+    "chaos_serve": ("worst lifetime slowdown 1.0377 vs cold_restart 1.0551 "
+                    "and none 2.3480", "reproduced the serve bit-for-bit"),
 }
 
 JAX_ANCHOR = {
@@ -474,8 +528,14 @@ def int32_ops_per_s() -> tuple[float, str]:
         f"{INT32_LANES_PER_SM} lanes x {mhz:g} MHz ({src})"
 
 
+STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for `phase`, stamped `t`: seconds since the script
+    started (where the run's time goes, phase by phase)."""
+    print(json.dumps({"phase": phase, "t": round(
+        time.perf_counter() - STARTED, 1), **fields}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -530,12 +590,13 @@ FILLER_KERNEL = "spin_kernel"          # torch.cuda._sleep's kernel
 
 
 @contextlib.contextmanager
-def profiled():
-    """A `torch.profiler` session of the CPU and the card whose block is
-    followed by `PROFILE_FILLERS` spin kernels (see `cuda_rows`)."""
+def profiled(cpu: bool = True):
+    """A `torch.profiler` session of the CPU (unless `cpu` is False) and
+    the card whose block is followed by `PROFILE_FILLERS` spin kernels
+    (see `cuda_rows`)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         yield prof
         for _ in range(PROFILE_FILLERS):
             torch.cuda._sleep(1)
@@ -673,7 +734,7 @@ QUANTUM_MENU = (6, 37, 120, 1 << 30)
 # sub-chunk, 256/257 a pass of the bitset route
 WINDOWS = (1, 13, 31, 32, 33, 64, 200, 256, 257, 512, 2048)
 CHECK_TAGS = (7, 29, 32, 33)        # 32: the bitset route's widest; 33 not
-CHECK_TRACE_LEN, CHECK_STEPS = 300, 1_200
+CHECK_PROGS, CHECK_TRACE_LEN, CHECK_STEPS = 3, 300, 1_200
 
 
 def _routes_since(before: dict, fn) -> dict:
@@ -688,71 +749,114 @@ def _check_routes(fn, before: dict, launches: int, what: str) -> dict:
     return taken
 
 
-def phase_kernel_vs_plain(dev, errs: dict) -> None:
-    """Seeded random small grids and cells: the kernel against its plain
-    version, every field equal bit for bit, on the route each alphabet
-    takes (bitset up to 32 tags, generic at 33)."""
+PLAIN_WORKERS = 4      # host processes computing kernel_vs_plain's plain results
+
+
+def kernel_vs_plain_cases() -> list:
+    """Seeded random small grids and cells as numpy int32 inputs:
+    [(name, args, kw, what)], one grid and three cells (unseeded, seeded,
+    materialise) per alphabet and window."""
     from repro_torch.core import simulator
-    from repro_torch.kernels import window_distance as wd
     rng = np.random.default_rng(2024)
-    t = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=dev)
-    p, trace_len, steps = 3, CHECK_TRACE_LEN, CHECK_STEPS
-    sched = t(simulator.priority_schedule((2, 1, 3), p))     # weighted
-    cases = 0
-    before = {fn.__name__: dict(fn.routes)
-              for fn in (wd.window_grid, wd.window_cell)}
-    t0 = time.perf_counter()
+    a = lambda x: np.asarray(x, np.int32)
+    p, trace_len, steps = CHECK_PROGS, CHECK_TRACE_LEN, CHECK_STEPS
+    sched = a(simulator.priority_schedule((2, 1, 3), p))     # weighted
+    cases = []
     for num_tags in CHECK_TAGS:
         for window in WINDOWS:
-            ptags = t(rng.integers(-1, num_tags, (3, p, trace_len)))
-            pcosts = t(rng.integers(0, 9, (3, p, trace_len)))
-            quanta = t([[QUANTUM_MENU[i] for i in rng.integers(0, 4, p)]
+            ptags = a(rng.integers(-1, num_tags, (3, p, trace_len)))
+            pcosts = a(rng.integers(0, 9, (3, p, trace_len)))
+            quanta = a([[QUANTUM_MENU[i] for i in rng.integers(0, 4, p)]
                         for _ in range(3)])
-            args = (ptags, pcosts, t([1, 4, 8]), t([0, 73]), quanta, sched,
+            args = (ptags, pcosts, a([1, 4, 8]), a([0, 73]), quanta, sched,
                     11, 23)
             kw = dict(num_tags=num_tags, total_steps=steps, window=window)
-            got = wd.window_grid(*args, **kw)
-            want = wd.window_grid_plain(*args, **kw)
-            errs["window_grid"] = max(errs["window_grid"],
-                                      max_err(got, want))
-            assert_same(got, want, f"window_grid T={num_tags} W={window}")
-            cases += 1
+            cases.append(("window_grid", args, kw,
+                          f"window_grid T={num_tags} W={window}"))
             for mode in ("unseeded", "seeded", "materialise"):
                 seed = None
                 if mode == "seeded":
-                    seed = (t(rng.permutation(num_tags) - 1),
-                            t(rng.integers(0, 3 * trace_len, p)),
-                            t(rng.integers(0, sched.shape[0])),
-                            t(rng.integers(0, 6)),
-                            t(rng.integers(0, 9_000, p)),
-                            t(rng.integers(0, 900, p)),
-                            t(rng.integers(0, 900, p)),
-                            t(rng.integers(0, 90, p)),
-                            t(rng.integers(0, 40)))
+                    seed = (a(rng.permutation(num_tags) - 1),
+                            a(rng.integers(0, 3 * trace_len, p)),
+                            a(rng.integers(0, sched.shape[0])),
+                            a(rng.integers(0, 6)),
+                            a(rng.integers(0, 9_000, p)),
+                            a(rng.integers(0, 900, p)),
+                            a(rng.integers(0, 900, p)),
+                            a(rng.integers(0, 90, p)),
+                            a(rng.integers(0, 40)))
                 cargs = (ptags[0], pcosts[0], 3, 41, quanta[0], sched, 9, 17,
                          seed)
-                ckw = dict(kw, materialise=mode != "unseeded")
-                got = wd.window_cell(*cargs, **ckw)
-                want = wd.window_cell_plain(*cargs, **ckw)
-                errs["window_cell"] = max(errs["window_cell"],
-                                          max_err(got, want))
-                assert_same(got, want,
-                            f"window_cell {mode} T={num_tags} W={window}")
-                cases += 1
-    torch.cuda.synchronize()
+                cases.append(("window_cell", cargs,
+                              dict(kw, materialise=mode != "unseeded"),
+                              f"window_cell {mode} T={num_tags} W={window}"))
+    return cases
+
+
+def _tensors(x, dev):
+    """numpy arrays, also inside tuples, as tensors on `dev`."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=dev)
+    if isinstance(x, tuple):
+        return tuple(_tensors(y, dev) for y in x)
+    return x
+
+
+def plain_on_host(name: str, args: tuple, kw: dict) -> tuple:
+    """A window wrapper's plain version on the host, in a worker process:
+    numpy inputs in; the fields as numpy and the seconds it took out."""
+    t0 = time.perf_counter()
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    torch.set_num_threads(1)
+    from repro_torch.kernels import window_distance as wd
+    out = getattr(wd, f"{name}_plain")(*_tensors(args, "cpu"), **kw)
+    return [o.numpy() for o in out], time.perf_counter() - t0
+
+
+def start_plain(pool, cases: list) -> list:
+    """`plain_on_host` for every case, submitted to `pool` (host processes
+    that work while the card runs the other phases)."""
+    return [pool.submit(plain_on_host, name, args, kw)
+            for name, args, kw, _ in cases]
+
+
+def phase_kernel_vs_plain(dev, errs: dict, cases: list, plain: list) -> None:
+    """The kernel on `kernel_vs_plain_cases`' inputs, on the card, against
+    its plain version on the same inputs (computed on the host by
+    `start_plain`: on the card its small launches took 134-197 s, PERF.md
+    §7), every field equal bit for bit, on the route each alphabet takes
+    (bitset up to 32 tags, generic at 33)."""
+    from repro_torch.kernels import window_distance as wd
+    before = {fn.__name__: dict(fn.routes)
+              for fn in (wd.window_grid, wd.window_cell)}
+    t0 = time.perf_counter()
+    host_s = waited_s = 0.0
+    for (name, args, kw, what), fut in zip(cases, plain):
+        got = [g.cpu() for g in getattr(wd, name)(*_tensors(args, dev),
+                                                    **kw)]
+        t1 = time.perf_counter()
+        fields, secs = fut.result()
+        waited_s += time.perf_counter() - t1
+        host_s += secs
+        want = [torch.from_numpy(w) for w in fields]
+        errs[name] = max(errs[name], max_err(got, want))
+        assert_same(got, want, what)
     routes = {fn.__name__: _routes_since(before[fn.__name__], fn)
               for fn in (wd.window_grid, wd.window_cell)}
     # one grid and three cells (unseeded, seeded, materialise) a case
     per_case = {"window_grid": 1, "window_cell": 3}
     for name, taken in routes.items():
         want = {r: per_case[name] * len(WINDOWS) *
-                sum(wd.route(x, p) == r for x in CHECK_TAGS)
+                sum(wd.route(x, CHECK_PROGS) == r for x in CHECK_TAGS)
                 for r in wd.ROUTES}
         check(taken == want, f"kernel_vs_plain {name} routes {taken}, "
                              f"expected {want}")
-    emit("kernel_vs_plain", cases=cases, windows=list(WINDOWS),
+    emit("kernel_vs_plain", cases=len(cases), windows=list(WINDOWS),
          num_tags=list(CHECK_TAGS), routes=routes, match=True,
-         seconds=round(time.perf_counter() - t0, 3))
+         seconds=round(time.perf_counter() - t0, 3),
+         plain_host_s=round(host_s, 3), plain_workers=PLAIN_WORKERS,
+         waited_for_plain_s=round(waited_s, 3))
 
 
 # The host functions of the simulator slice whose wall time the fig7 and
@@ -769,15 +873,16 @@ HOST_SPANS = {
 
 
 @contextlib.contextmanager
-def host_split():
-    """Time each function of `HOST_SPANS` while the block runs, patched in
-    its module: {span: {"s", "calls"}}, plus "total_s" of the block.  A
-    call runs between two synchronisations, so the card's work it launched
-    counts in it; a call made inside another timed call counts in the
-    outer one only."""
+def host_split(spans: dict = HOST_SPANS):
+    """Time each function of `spans` (default `HOST_SPANS`) while the
+    block runs, patched in its module: {span: {"s", "calls"}}, plus
+    "total_s" of the block.  A call runs between two synchronisations, so
+    the card's work it launched counts in it; a call made inside another
+    timed call of the same `spans` counts in the outer one only (nest two
+    of these to split an outer span)."""
     import importlib
     split, patched, depth = {}, [], [0]
-    for name, (mod_name, attr) in HOST_SPANS.items():
+    for name, (mod_name, attr) in spans.items():
         mod = importlib.import_module(mod_name)
         real = getattr(mod, attr)
         span = split[name] = {"s": 0.0, "calls": 0}
@@ -1174,6 +1279,429 @@ def phase_timing(dev, errs: dict, splits: dict, parent=None) -> dict:
         emit(f"host_split_{phase}", total_s=split["total_s"], **spans,
              kernel_device_s=kernel_s, kernel_launches=n, rest_s=rest)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sched slice: placement, admission, online re-placement, faults
+# ---------------------------------------------------------------------------
+
+# where the fleet loop's wall time goes: the outermost call of each span
+# counts (a placement search's own sweeps count in the search) ...
+SCHED_SPANS = {
+    "placement_search": ("repro_torch.sched.online", "place_tenants"),
+    "sweep_fleet": ("repro_torch.core.simulator", "sweep_fleet"),
+    "resumed_epochs": ("repro_torch.core.simulator", "simulate_many"),
+}
+# ... and, inside the resumed epochs and probes, the state translation
+# and the reference machine's segments
+RESUME_SPANS = {
+    "seed_carry": ("repro_torch.core.simulator", "_seed_carry"),
+    "state_from_final": ("repro_torch.core.simulator", "_state_from_final"),
+    "scan_segments": ("repro_torch.core.simulator", "_simulate_fleet_impl"),
+}
+# which engine each resumed segment took
+SEGMENT_SPANS = {
+    "interleaved_segments": ("repro_torch.core.simulator",
+                             "_resume_fleet_interleaved"),
+    "scan_segments": ("repro_torch.core.simulator", "_simulate_fleet_impl"),
+}
+
+# the engine's sched half (`sched_engine`): four tenants on the slot
+# engine, a weighted admission plan over 2 cores, then a churn serve over
+# 3 cores under a seeded fault storm (`tests/jax_sched_anchor.py` serves
+# the same through the JAX package's engine)
+ENGINE_BENCHES = {"fg": "minver", "t1": "nbody", "t2": "crc32",
+                  "t3": "tarfind"}
+ENGINE_PLAN = dict(slo=1.08, num_cores=2, slo_weights={"fg": 4.0})
+ENGINE_PLACEMENT = dict(num_slots=4, miss_latency=50, quantum_cycles=2_000,
+                        trace_len=2_000, steps_per_program=2_000)
+ENGINE_ONLINE = dict(num_cores=3, epoch_steps=2_000, probe_steps=800)
+ENGINE_EVENTS = [(0, "arrive", "fg", "minver"), (0, "arrive", "t1", "nbody"),
+                 (1, "arrive", "t2", "crc32"), (1, "arrive", "t3", "tarfind"),
+                 (2, "arrive", "t4", "cubic"), (4, "depart", "t2", None),
+                 (4, "arrive", "t5", "qrduino")]
+ENGINE_STORM = dict(seed=5, num_epochs=8, num_cores=3, p_core_loss=0.15,
+                    p_seu=0.2, p_flush=0.15, p_stall=0.15)
+ENGINE_EPOCHS = 8
+
+
+def search_rows_held(rows) -> list:
+    """placement_search's rows without their seconds: the two seconds
+    rows dropped, the finding's seconds cut out."""
+    return [re.sub(r"search [0-9.]+s ", "search ", r) for r in rows
+            if not r.startswith(("cold_search_s,", "search_s,"))]
+
+
+def fleet_rows_held(rows) -> list:
+    """fleet_scale_study's rows without their seconds: the
+    steady_resolve_s column dropped, and the finding line, whose numbers
+    are all seconds and their ratios."""
+    out = []
+    for row in rows:
+        if not row.startswith("#"):
+            fields = row.split(",")
+            out.append(",".join(fields[:5] + fields[6:]))
+    return out
+
+
+def report_json(value) -> str:
+    """A report, decision or plain dict as canonical JSON (tuples as
+    lists): the form both packages' results are digested in."""
+    if dataclasses.is_dataclass(value):
+        value = dataclasses.asdict(value)
+    return json.dumps(value, sort_keys=True)
+
+
+def fleet_reports_held(out: dict) -> list:
+    """Every report `fleet_scale_study.run` returns (each size, both
+    modes); a report holds no seconds."""
+    return [report_json(out[label][mode]) for label in out
+            for mode in ("full", "incremental")]
+
+
+def decision_held(decision) -> str:
+    """An `AdmissionDecision` as JSON: admitted, deferred, the predicted
+    worst slowdown and the placement's cores and slowdowns."""
+    pl = decision.placement
+    return report_json({
+        "admitted": decision.admitted, "deferred": decision.deferred,
+        "predicted_worst": decision.predicted_worst,
+        "cores": None if pl is None else pl.cores,
+        "tenant_slowdown": None if pl is None else pl.tenant_slowdown})
+
+
+@contextlib.contextmanager
+def window_launches(phase: str, out: dict):
+    """Both window counters set to 0 just before the block and read just
+    after, into `out[phase]`; the phase must have launched the kernel,
+    every launch on the bitset route."""
+    from repro_torch.kernels import window_distance as wd
+    fns = (wd.window_grid, wd.window_cell)
+    for fn in fns:
+        fn.launches = 0
+        fn.routes = dict.fromkeys(wd.ROUTES, 0)
+    yield
+    counts = {fn.__name__: fn.launches for fn in fns}
+    routes = {fn.__name__: dict(fn.routes) for fn in fns}
+    check(sum(counts.values()) > 0, f"{phase} launched no window kernel")
+    for name, n in counts.items():
+        check(routes[name] == {"bitset": n, "generic": 0},
+              f"{phase}: {name} routes {routes[name]} for {n} launches")
+    out[phase] = {"launches": counts, "routes": routes}
+
+
+def _shape(x):
+    """The shape class of a window wrapper's argument: a tensor's or an
+    array's shape, a tuple's by element, an int or flag as it is."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return tuple(x.shape)
+    if isinstance(x, (tuple, list)):
+        return tuple(_shape(y) for y in x)
+    return x
+
+
+def _clone(x):
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return x.clone() if isinstance(x, torch.Tensor) else x.copy()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(y) for y in x)
+    return x
+
+
+@contextlib.contextmanager
+def window_shapes():
+    """While the block runs, every call of the window wrappers counted by
+    its shape class (wrapper, argument shapes, keywords, seeded or not),
+    the first call of each class kept, its arguments and result cloned:
+    {key: {"name", "calls", "args", "kw", "out"}}.  The launch counters
+    keep counting through the stand-ins."""
+    from repro_torch.kernels import window_distance as wd
+    classes, patched = {}, []
+    for name in ("window_grid", "window_cell"):
+        real = getattr(wd, name)
+
+        def kept(*a, _real=real, _name=name, **kw):
+            out = _real(*a, **kw)
+            key = (_name, _shape(a), tuple(sorted(
+                (k, _shape(v)) for k, v in kw.items())))
+            if key not in classes:
+                classes[key] = {"name": _name, "calls": 0, "args": _clone(a),
+                                "kw": dict(kw), "out": _clone(out)}
+            classes[key]["calls"] += 1
+            return out
+
+        # the wrapper counts through its module's global name, which is
+        # the stand-in meanwhile: its launches go back to the wrapper
+        kept.launches, kept.routes = 0, real.routes
+        setattr(wd, name, kept)
+        patched.append((name, real, kept))
+    try:
+        yield classes
+    finally:
+        for name, real, kept in patched:
+            real.launches += kept.launches
+            setattr(wd, name, real)
+
+
+def _width(cls: dict) -> tuple:
+    """(P, B) of a kept call: (B, P, N) streams to the grid, (P, N) to a
+    cell (B 1)."""
+    shape = tuple(cls["args"][0].shape)
+    return shape[1:2] + shape[:1] if len(shape) == 3 else (shape[0], 1)
+
+
+def hold_shapes_to_plain(classes: dict, errs: dict) -> list:
+    """The widest kept calls held against their plain versions on the
+    same card tensors bit for bit: `window_cell`'s at each step count
+    (epochs and probes) and `window_grid`'s, each with the most programs,
+    then the most fleets: [{"name", "programs", "fleets", "steps"}]."""
+    from repro_torch.kernels import window_distance as wd
+    pick = {}
+    for cls in classes.values():
+        key = (cls["name"], cls["kw"]["total_steps"]
+               if cls["name"] == "window_cell" else 0)
+        if key not in pick or _width(cls) > _width(pick[key]):
+            pick[key] = cls
+    held = []
+    for (name, _), cls in sorted(pick.items()):
+        want = getattr(wd, f"{name}_plain")(*cls["args"], **cls["kw"])
+        (p, b), steps = _width(cls), cls["kw"]["total_steps"]
+        errs[name] = max(errs[name], max_err(cls["out"], want))
+        assert_same(cls["out"], want, f"{name} at P={p}, B={b}, "
+                                      f"{steps} steps")
+        held.append({"name": name, "programs": p, "fleets": b,
+                     "steps": steps})
+    return held
+
+
+SPIN_CYCLES = 40_000_000       # ~20 ms of `torch.cuda._sleep` on an H100
+
+
+def queued_ms(call, reps: int = 3) -> float | None:
+    """Device ms of one `call`, by CUDA events around `reps` calls queued
+    behind a spin kernel: the card runs them back to back once it ends,
+    so the wrappers' host work is hidden and their small device copies
+    count.  None if the host took longer to queue them than the spin
+    lasted, at the spin's length and at four times it."""
+    call()
+    torch.cuda.synchronize()
+    for spin in (SPIN_CYCLES, 4 * SPIN_CYCLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        queued = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if queued < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+    return None
+
+
+def shapes_device_s(classes: dict, dev) -> dict:
+    """The window kernel's device seconds over a block, per wrapper: each
+    shape class's calls times its kept call's `queued_ms`; None where a
+    class was not measured.  The replays take the slot counts, latencies,
+    quanta and schedule as int32 tensors on the card already: a wrapper
+    given a Python int copies it to the card, which synchronises."""
+    from repro_torch.kernels import window_distance as wd
+    total = {"window_grid": 0.0, "window_cell": 0.0}
+    for cls in classes.values():
+        name = cls["name"]
+        args = tuple(torch.as_tensor(x, dtype=torch.int32, device=dev)
+                     if 2 <= i <= 5 else x
+                     for i, x in enumerate(cls["args"]))
+        ms = queued_ms(lambda: getattr(wd, name)(*args, **cls["kw"]))
+        if ms is None or total[name] is None:
+            total[name] = None
+        else:
+            total[name] += cls["calls"] * ms / 1e3
+    return total
+
+
+def idle_sync_us(reps: int = 2_000) -> float:
+    """Host microseconds of one `torch.cuda.synchronize` on an idle card:
+    the least each span of `host_split` adds twice a call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def phase_sched_placement(dev, launches: dict) -> None:
+    """`placement_study` and `placement_search` at the JAX package's
+    sizes: every candidate group priced through `window_grid`."""
+    from repro_torch.bench import placement_search, placement_study
+    with window_launches("sched_placement", launches):
+        t0 = time.perf_counter()
+        rows, _ = placement_study.run(dev)
+        torch.cuda.synchronize()
+        study_s = time.perf_counter() - t0
+        search_rows, search = placement_search.run(dev)
+    check(sha(rows) == EXPECTED_ROWS["placement_study"],
+          "placement_study rows differ from JAX's")
+    for anchor in ANCHORS["placement_study"]:
+        check(anchor in rows[-1], f"placement_study anchor {anchor!r}")
+    check(sha(search_rows_held(search_rows))
+          == EXPECTED_ROWS["placement_search"],
+          "placement_search rows differ from JAX's")
+    check(ANCHORS["placement_search"] in search_rows[-1],
+          f"placement_search: {search_rows[-1]}")
+    emit("sched_placement", placement_study_s=study_s,
+         finding=rows[-1][2:], search_s=search["search_s"],
+         cold_search_s=search["cold_search_s"],
+         sim_calls=search["sim_calls"],
+         groups_simulated=search["groups_simulated"],
+         worst_slowdown=search["worst_slowdown"], rows_match_jax=True,
+         **launches["sched_placement"])
+
+
+def phase_sched_online(dev, launches: dict) -> None:
+    """`online_churn` and `chaos_serve` (its crash-restart parity
+    included): every seedable epoch and probe resumed through
+    `window_cell`, the faulted and degraded segments on the reference
+    machine, counted and timed."""
+    from repro_torch.bench import chaos_serve, online_churn
+    with window_launches("sched_online", launches):
+        with host_split(SEGMENT_SPANS) as churn_seg:
+            churn_rows, _ = online_churn.run(dev)
+        with host_split(SEGMENT_SPANS) as chaos_seg:
+            chaos_rows, _ = chaos_serve.run(dev)
+    check(sha(churn_rows) == EXPECTED_ROWS["online_churn"],
+          "online_churn rows differ from JAX's")
+    check(sha(chaos_rows) == EXPECTED_ROWS["chaos_serve"],
+          "chaos_serve rows differ from JAX's")
+    for anchor in ANCHORS["online_churn"]:
+        check(anchor in churn_rows[-1], f"online_churn anchor {anchor!r}")
+    for anchor in ANCHORS["chaos_serve"]:
+        check(anchor in chaos_rows[-1], f"chaos_serve anchor {anchor!r}")
+    check(churn_seg["scan_segments"]["calls"] == 0,
+          "a fault-free serve took the reference machine")
+    check(chaos_seg["scan_segments"]["calls"] > 0,
+          "chaos_serve's faulted segments took no reference machine")
+    emit("sched_online", online_churn_s=churn_seg["total_s"],
+         chaos_serve_s=chaos_seg["total_s"],
+         churn_segments={k: churn_seg[k] for k in SEGMENT_SPANS},
+         chaos_segments={k: chaos_seg[k] for k in SEGMENT_SPANS},
+         chaos_scan_share=(chaos_seg["scan_segments"]["s"]
+                           / chaos_seg["total_s"]),
+         churn_finding=churn_rows[-1][2:], chaos_finding=chaos_rows[-1][2:],
+         crash_restart=chaos_rows[-2][2:], rows_match_jax=True,
+         **launches["sched_online"])
+
+
+def phase_sched_fleet_scale(dev, launches: dict, errs: dict) -> None:
+    """The slice's main path: `fleet_scale_study` at its full sizes (256,
+    512 and 1,000 tenants on 32, 64 and 128 cores, each served in both
+    re-solve modes), its own parity and sublinearity asserts included;
+    rows and reports held to JAX's on every field but the seconds; no
+    resumed segment on the reference machine.  The window kernel is held
+    to its plain version at the widest shapes the loop gave it, and the
+    wall time split: placement search, `sweep_fleet`, resumed epochs with
+    their state translation, the kernel's device time (each shape class's
+    calls times its device ms), the rest; with the least the split's own
+    synchronisations cost."""
+    from repro_torch.bench import fleet_scale_study
+    check(os.environ.get("REPRO_FLEET_SCALE", "") != "smoke",
+          "REPRO_FLEET_SCALE=smoke would cut the fleet to 64 tenants")
+    with window_launches("sched_fleet_scale", launches):
+        with host_split(SCHED_SPANS) as split, \
+                host_split(RESUME_SPANS) as inner, window_shapes() as shapes:
+            rows, out = fleet_scale_study.run(dev)
+    check(sha(fleet_rows_held(rows)) == EXPECTED_ROWS["fleet_scale_rows"],
+          "fleet_scale_study rows differ from JAX's")
+    check(sha(fleet_reports_held(out))
+          == EXPECTED_ROWS["fleet_scale_reports"],
+          "fleet_scale_study placements or move logs differ from JAX's")
+    check(inner["scan_segments"]["calls"] == 0,
+          "a fault-free fleet serve took the reference machine")
+    t0 = time.perf_counter()
+    held = hold_shapes_to_plain(shapes, errs)
+    check_s = time.perf_counter() - t0
+    kernel_s = shapes_device_s(shapes, dev)
+    big = out[fleet_scale_study.FULL_SIZES[-1][0]]
+    spans = {k: split[k] for k in SCHED_SPANS}
+    syncs = 2 * sum(v["calls"] for sp in (split, inner)
+                    for k, v in sp.items() if k != "total_s")
+    sync_us = idle_sync_us()
+    emit("sched_fleet_scale", sizes=[label for label, *_ in
+                                     fleet_scale_study.FULL_SIZES],
+         seconds=split["total_s"], finding=rows[-1][2:],
+         steady_resolve_s={label: {"full": o["t_full"],
+                                   "incremental": o["t_inc"]}
+                           for label, o in out.items()},
+         migrations_1000t=big["incremental"].migrations,
+         full_equals_incremental=True, rows_match_jax=True,
+         reports_match_jax=True, held_to_plain=held,
+         plain_check_s=check_s, **launches["sched_fleet_scale"])
+    known = sum(v["s"] for v in spans.values())
+    emit("host_split_fleet_scale", total_s=split["total_s"], **spans,
+         inside_resumed={k: inner[k] for k in RESUME_SPANS},
+         window_kernel_device_s=kernel_s,
+         shape_classes={name: sum(c["name"] == name
+                                  for c in shapes.values())
+                        for name in ("window_grid", "window_cell")},
+         split_syncs=syncs, idle_sync_us=sync_us,
+         split_sync_s_least=syncs * sync_us / 1e6,
+         rest_s=split["total_s"] - known)
+
+
+def phase_sched_engine(dev, launches: dict) -> None:
+    """The serve engine's sched half: `plan_coresidency` then
+    `apply_admission`, and `serve_online` under `FaultPlan.storm`, each
+    result held to the JAX engine's; then `perf_slot_decode`'s fleet
+    rows (its slot half serves 16-wide heads, below the card's attention
+    kernels: the CPU test holds it), held to JAX's text."""
+    from repro_torch.bench import perf_slot_decode
+    from repro_torch.models import transformer
+    from repro_torch.sched import (FaultPlan, OnlineConfig,
+                                   PlacementConfig, TenantEvent)
+    from repro_torch.serve.engine import (EngineConfig, SlotServeEngine,
+                                          Tenant)
+    _, cfg = perf_slot_decode.config()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = np.zeros((1, 4), np.int32)
+    eng = SlotServeEngine(cfg, params, EngineConfig(slots_per_shard=4),
+                          [Tenant(n, tokens) for n in ENGINE_BENCHES],
+                          max_len=8, device=dev)
+    storm = FaultPlan.storm(**ENGINE_STORM)
+    with window_launches("sched_engine", launches):
+        t0 = time.perf_counter()
+        decision = eng.plan_coresidency(ENGINE_BENCHES, **ENGINE_PLAN)
+        kept = [t.name for t in eng.apply_admission(decision, 0)]
+        with host_split(SEGMENT_SPANS) as seg:
+            rep = eng.serve_online(
+                [TenantEvent(*e) for e in ENGINE_EVENTS],
+                online_cfg=OnlineConfig(
+                    placement=PlacementConfig(**ENGINE_PLACEMENT),
+                    **ENGINE_ONLINE),
+                faults=storm, num_epochs=ENGINE_EPOCHS)
+        engine_s = time.perf_counter() - t0
+        fleet = perf_slot_decode.fleet_rows(dev)
+        torch.cuda.synchronize()
+        fleet_rows_s = time.perf_counter() - t0 - engine_s
+    check(sha([decision_held(decision)]) == EXPECTED_ROWS["engine_plan"],
+          f"plan_coresidency differs from JAX's: {decision}")
+    check(sha([report_json(rep)]) == EXPECTED_ROWS["engine_online"],
+          "serve_online's report differs from JAX's")
+    check(seg["scan_segments"]["calls"] > 0,
+          "the storm sent no segment to the reference machine")
+    check(sha(fleet) == EXPECTED_ROWS["perf_slot_decode_fleet"],
+          "perf_slot_decode's fleet rows differ from JAX's")
+    emit("sched_engine", admitted=decision.admitted,
+         deferred=decision.deferred, kept_on_core0=kept,
+         engine_deferred=[t.name for t in eng.deferred],
+         storm_events=len(storm.events), evacuations=rep.evacuations,
+         worst_lifetime_slowdown=rep.worst_lifetime_slowdown,
+         segments={k: seg[k] for k in SEGMENT_SPANS}, seconds=engine_s,
+         perf_slot_decode_fleet_s=fleet_rows_s,
+         plan_matches_jax=True, report_matches_jax=True,
+         fleet_rows_match_jax=True, **launches["sched_engine"])
 
 
 # ---------------------------------------------------------------------------
@@ -2054,12 +2582,18 @@ def phase_slot_engine(dev, cfg, params) -> None:
             secs = time.perf_counter() - t0
             del eng
             eng, before = engine(), moe_gmm.moe_gmm_skip.launches
-            with profiled() as prof:
+            # the card alone: the host's slot bookkeeping adds CPU op
+            # records by the thousand, which `_kernel_ms` does not read
+            t0 = time.perf_counter()
+            with profiled(cpu=False) as prof:
                 eng.run(SLOT_STEPS)
+            profiled_s = time.perf_counter() - t0
             launched = moe_gmm.moe_gmm_skip.launches - before
             check(launched == SLOT_STEPS * moe_layers,
                   f"slot engine launched moe_gmm_skip {launched} times")
+            t0 = time.perf_counter()
             skip_ms = _kernel_ms(prof)["moe_gmm_skip"]
+            read_s = time.perf_counter() - t0
             emit("slot_engine", arch=cfg.name, slots=slots, hit_bias=bias,
                  shards=SLOT_SHARDS, tenants=SLOT_TENANTS, batch=8,
                  steps=rep["steps"], hit_rate=rep["hit_rate"],
@@ -2067,6 +2601,8 @@ def phase_slot_engine(dev, cfg, params) -> None:
                  live_experts_per_layer_step=rep["accesses"] /
                  (rep["steps"] * moe_layers),
                  wall_ms_per_step=1e3 * secs / rep["steps"],
+                 run_s=secs, profiled_run_s=profiled_s,
+                 profile_read_s=read_s,
                  moe_gmm_skip_device_ms_per_step=(
                      skip_ms / rep["steps"] if skip_ms > 0 else None))
             del eng
@@ -2839,13 +3375,24 @@ def main() -> None:
     opts = ap.parse_args()
     load_port()
     card = phase_device()
+    # the plain results of the window kernel's first check are computed
+    # by host processes while the card runs the simulator and sched slices
+    cases = kernel_vs_plain_cases()
+    pool = ProcessPoolExecutor(PLAIN_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        run(opts, card, cases, start_plain(pool, cases))
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def run(opts, card: str, cases: list, plain: list) -> None:
     from repro_torch.kernels import window_distance as wd
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase_build()
     parent = None if opts.parent is None else load_parent_window(opts.parent)
     errs = {"window_grid": 0, "window_cell": 0}
-    phase_kernel_vs_plain(dev, errs)
 
     # the main path: counts from 0, read right after it
     for fn in (wd.window_grid, wd.window_cell):
@@ -2886,6 +3433,30 @@ def main() -> None:
         **({"fleet": times["window_grid_fleet"]}
            if name == "window_grid" else {})}
         for name in ("window_grid", "window_cell")]
+
+    # the sched slice; its main path is the 1,000-tenant fleet loop
+    # (`sched_fleet_scale`).  Each phase counts the window launches from 0
+    # and must launch the kernel, every launch on the bitset route; the
+    # window rows add them to the simulator's
+    sched, late_errs = {}, {"window_grid": 0, "window_cell": 0}
+    phase_sched_placement(dev, sched)
+    phase_sched_online(dev, sched)
+    phase_sched_fleet_scale(dev, sched, late_errs)
+    phase_sched_engine(dev, sched)
+    emit("sched_path", phases=sched)
+    # the seeded small grids and cells, their plain results from the host
+    phase_kernel_vs_plain(dev, late_errs, cases, plain)
+    for row in kernels:
+        name = row["name"]
+        check(late_errs[name] == 0, f"{name} differs from its plain "
+                                    f"version by {late_errs[name]}")
+        row["max_abs_err"] = max(row["max_abs_err"], late_errs[name])
+        n = sum(ph["launches"][name] for ph in sched.values())
+        row["launches_by_slice"] = {"simulator": row["launches"], "sched": n}
+        row["launches"] += n
+        row["routes"] = {r: row["routes"][r] + sum(
+            ph["routes"][name][r] for ph in sched.values())
+            for r in wd.ROUTES}
 
     # the dense-model slice
     attn_errs = {"flash_attention": 0.0, "decode_attention": 0.0}

@@ -8,6 +8,11 @@ fig4 minver_speedup_F=27.50, fig5 5/8/9, fig6 avg_s2@50c=0.687, fig7
 abs 0.81 of IMF (x3.13/x1.39/x1.67), P=4 fleet 0.935/0.757/0.452.
 `bench_expert_slots` serves a smoke-size MoE model through the slot
 engine; its derived line is its first row, as the JAX runner records it.
+The sched benchmarks (`placement_study`, `placement_search`,
+`online_churn`, `chaos_serve`, `fleet_scale_study`) derive their
+"# finding" line, as the JAX runner does (anchors: P2/P3/P4
+1.075/1.075/1.113, worst 1.0768, 1.0441 with 1 migration,
+1.0377/1.0551/2.3480); `perf_slot_decode` its `slots,2,4.0` row.
 `python -m repro_torch.bench` runs them all.
 """
 from __future__ import annotations
@@ -15,8 +20,11 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.bench import (bench_expert_slots, bitstream_study,
-                               fig4_extensions, fig5_classification,
-                               fig6_single, fig7_multi)
+                               chaos_serve, fig4_extensions,
+                               fig5_classification, fig6_single, fig7_multi,
+                               fleet_scale_study, online_churn,
+                               perf_slot_decode, placement_search,
+                               placement_study)
 
 
 def _capture(main, **kw) -> list[str]:
@@ -71,6 +79,42 @@ def bench_slots(device="cuda"):
     return lines, lines[1] if len(lines) > 1 else ""
 
 
+def finding(lines: list[str]) -> str:
+    """The "# finding" line a sched benchmark derives, without its "# "."""
+    return [l for l in lines if l.startswith("# finding")][0][2:]
+
+
+def bench_placement_study(device="cuda"):
+    lines, _ = placement_study.run(device)
+    return lines, finding(lines)
+
+
+def bench_placement_search(device="cuda"):
+    lines, _ = placement_search.run(device)
+    return lines, finding(lines)
+
+
+def bench_online_churn(device="cuda"):
+    lines, _ = online_churn.run(device)
+    return lines, finding(lines)
+
+
+def bench_chaos_serve(device="cuda"):
+    lines, _ = chaos_serve.run(device)
+    return lines, finding(lines)
+
+
+def bench_fleet_scale_study(device="cuda"):
+    lines, _ = fleet_scale_study.run(device)
+    return lines, finding(lines)
+
+
+def bench_perf_slot_decode(device="cuda"):
+    lines = _capture(perf_slot_decode.main, device=device)
+    best = [l for l in lines if l.startswith("slots,2,4.0")]
+    return lines, (best[0] if best else "")
+
+
 BENCHES = {
     "fig4_extensions": bench_fig4,
     "fig5_classification": bench_fig5,
@@ -79,4 +123,10 @@ BENCHES = {
     "fleet_sweep": bench_fleet_sweep,
     "bitstream_study": bench_bitstream_study,
     "bench_expert_slots": bench_slots,
+    "perf_slot_decode": bench_perf_slot_decode,
+    "placement_study": bench_placement_study,
+    "placement_search": bench_placement_search,
+    "online_churn": bench_online_churn,
+    "chaos_serve": bench_chaos_serve,
+    "fleet_scale_study": bench_fleet_scale_study,
 }

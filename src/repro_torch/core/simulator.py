@@ -24,7 +24,8 @@ same dispatcher and the same eligibility rules as the reference:
     unpreempted runs with an undersized bitstream cache;
   * **scan path**: the reference machine, one access per step.  torch has
     no `lax.scan`, so this is a Python step loop vectorised over every
-    lane of the grid: the semantics, not the speed.
+    lane of the grid: the semantics, not the speed (on the card the loop
+    replays CUDA graphs of `SCAN_GRAPH_STEPS` steps).
 
 Every public entry point takes `device=` (default "cuda") and returns
 torch tensors on that device; nothing falls back to the CPU on its own.
@@ -61,6 +62,7 @@ __all__ = [
     "simulate_many", "sweep_fleet", "sweep_bitstream",
     "simulate_pair", "simulate_pair_batch",
     "analytic_cpi", "fixed_pair_cpi", "fixed_fleet_cpi", "fleet_mesh_size",
+    "seu_fleet_state", "flush_bitstream", "degrade_fleet_state",
 ]
 
 # inert: kept so call sites written against the reference still work
@@ -477,6 +479,56 @@ def _canonical_state(state: FleetState) -> FleetState:
                           bs_st=canonical_slot_state(state.bs_st))
 
 
+# ---------------------------------------------------------------------------
+# fault surgery: the state mutations a fleet's fault events inflict
+# ---------------------------------------------------------------------------
+
+
+def seu_fleet_state(state: FleetState, slot_indices) -> FleetState:
+    """A single-event upset invalidates the disambiguator entries at
+    `slot_indices` and re-canonicalises the cache so survivors pack a
+    prefix.  The result is usually not seedable by the interleaved resume
+    (`_seedable_fleet_state`), so the next resumed segment takes the
+    reference machine until the disambiguator refills."""
+    idx = np.asarray(slot_indices, np.int64).reshape(-1)
+    n = state.slot_st.tags.shape[0]
+    if idx.size and (idx.min() < 0 or idx.max() >= n):
+        raise ValueError(
+            f"SEU slot indices {idx.tolist()} out of range for a "
+            f"{n}-slot disambiguator")
+    return state._replace(slot_st=canonical_slot_state(
+        slots.invalidate(state.slot_st, idx)))
+
+
+def flush_bitstream(state: FleetState) -> FleetState:
+    """A failed partial reconfiguration colds the bitstream cache: every
+    later disambiguator miss re-pays `bs_miss_extra`.  Slot residents no
+    longer covered by the bitstream cache make the state unseedable, so
+    the next resumed segment takes the reference machine."""
+    return state._replace(bs_st=slots.init(state.bs_st.tags.shape[0],
+                                           state.bs_st.tags.device))
+
+
+def degrade_fleet_state(state: FleetState, num_active: int) -> FleetState:
+    """Shrink a state to a core that came back with `num_active` usable
+    disambiguator slots: the `num_active` most recently used residents
+    survive, packed canonically into the active prefix.  A masked run
+    (`simulate_many(..., num_active=k)`) over such a state is bit for bit
+    an LRU cache of k slots."""
+    n = state.slot_st.tags.shape[0]
+    if not 1 <= num_active <= n:
+        raise ValueError(
+            f"num_active must be in [1, {n}], got {num_active}")
+    st = canonical_slot_state(state.slot_st)
+    filled = int((_np(st.tags) >= 0).sum())
+    if filled > num_active:
+        # canonical order is LRU-ascending: the dead slots take the
+        # least-recently-used residents (prefix entries)
+        st = canonical_slot_state(
+            slots.invalidate(st, np.arange(filled - num_active)))
+    return state._replace(slot_st=st)
+
+
 def _seedable_fleet_state(state: FleetState, num_tags: int,
                           worst_step: int, total_steps: int) -> bool:
     """True iff the interleaved engine can seed from this `FleetState`:
@@ -662,7 +714,8 @@ def _scan_lanes(ptags: torch.Tensor, pcosts: torch.Tensor,
     FleetState with a leading lane axis.  Mirrors the reference's
     `_fleet_step_fn` (the access pays its hw cost, a slot miss its latency,
     a bitstream miss its penalty; the expiring access's program pays the
-    handler; caches persist across switches)."""
+    handler; caches persist across switches).  On the card the steps run
+    as CUDA graphs (`_replay_steps`)."""
     dev = ptags.device
     _, num_progs, trace_len = ptags.shape
     sched_len = schedule.shape[0]
@@ -670,8 +723,8 @@ def _scan_lanes(ptags: torch.Tensor, pcosts: torch.Tensor,
     flat_costs = pcosts.reshape(-1)
     row_base = lane_fleet.long() * num_progs
     parange = torch.arange(num_progs, device=dev)
-    c = state
-    for _ in range(total_steps):
+
+    def step(c: FleetState) -> FleetState:
         p = schedule[c.sched_idx.long()].long()
         i = torch.remainder(c.cursors.gather(1, p[:, None])[:, 0], trace_len)
         flat = (row_base + p) * trace_len + i.long()
@@ -686,7 +739,7 @@ def _scan_lanes(ptags: torch.Tensor, pcosts: torch.Tensor,
         do_switch = q >= quanta.gather(1, p[:, None])[:, 0]
         cost_p = cost + do_switch.to(torch.int32) * handler
         onehot = (parange == p[:, None]).to(torch.int32)
-        c = FleetState(
+        return FleetState(
             slot_st=slot_st, bs_st=bs_st,
             cursors=c.cursors + onehot,
             sched_idx=torch.where(do_switch, (c.sched_idx + 1) % sched_len,
@@ -698,6 +751,51 @@ def _scan_lanes(ptags: torch.Tensor, pcosts: torch.Tensor,
             bs_misses=c.bs_misses + onehot * bs_miss.to(torch.int32)[:, None],
             switches=c.switches + do_switch.to(torch.int32),
         )
+
+    if dev.type == "cuda" and total_steps >= SCAN_GRAPH_STEPS:
+        return _replay_steps(step, state, total_steps)
+    c = state
+    for _ in range(total_steps):
+        c = step(c)
+    return c
+
+
+# A step of the reference machine is ~85 tiny ops.  Eagerly on the card
+# each is a kernel launch and the loop is bound by the host's dispatch
+# (1.1-1.6 ms a step on an H100, PERF.md), so there it runs as a
+# CUDA graph of this many steps, captured once a call and replayed: the
+# same ops on the same tensors, so the same results.
+SCAN_GRAPH_STEPS = 32
+
+
+def _state_leaves(state: FleetState) -> list:
+    return list(state.slot_st) + list(state.bs_st) + list(state[2:])
+
+
+def _state_of(leaves: list) -> FleetState:
+    return FleetState(slots.SlotState(*leaves[:3]),
+                      slots.SlotState(*leaves[3:6]), *leaves[6:])
+
+
+def _replay_steps(step, state: FleetState, total_steps: int) -> FleetState:
+    """`total_steps` applications of `step` to `state` on the card: one
+    eager step first (it loads every kernel the capture records), then a
+    graph of `SCAN_GRAPH_STEPS` steps that writes its result back into
+    its own input, replayed, and the remainder eagerly."""
+    static = _state_of([x.clone() for x in _state_leaves(state)])
+    step(static)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = static
+        for _ in range(SCAN_GRAPH_STEPS):
+            c = step(c)
+        for dst, src in zip(_state_leaves(static), _state_leaves(c)):
+            dst.copy_(src)
+    for _ in range(total_steps // SCAN_GRAPH_STEPS):
+        graph.replay()
+    c = _state_of([x.clone() for x in _state_leaves(static)])
+    for _ in range(total_steps % SCAN_GRAPH_STEPS):
+        c = step(c)
     return c
 
 
@@ -899,8 +997,8 @@ def simulate_many(traces, cfg: ReconfigConfig, scenarios,
         if masked and bool(np.any(_np(state.slot_st.tags)[active:] >= 0)):
             raise ValueError(
                 f"num_active={active} masks slots the state still "
-                f"populates — degrade the state first so the dead slots "
-                f"hold no residents")
+                f"populates — apply simulator.degrade_fleet_state first "
+                f"so the dead slots hold no residents")
         if int(state.sched_idx) >= schedule.shape[0]:
             raise ValueError(
                 f"FleetState scheduler cursor {int(state.sched_idx)} is "

@@ -26,10 +26,19 @@ step the engine:
   4. optionally computes a *slot-hit routing* bias from the resident sets
      (the beyond-paper knob): +hit_bias on resident experts' logits.
 
-Not here yet: `estimate_fleet_contention` and the engine's
-`fleet_contention`, `plan_coresidency`, `serve_online` and
-`apply_admission`, which need `repro.sched`, come with the port of that
-package.
+The sched half asks the core fleet simulator which tenants should share
+a core: `estimate_fleet_contention` predicts each tenant's contention
+slowdown through the same `simulate_many`/`sweep_fleet` machinery as the
+Fig. 7 numbers (the window kernel's `window_grid` on the card);
+`SlotServeEngine.fleet_contention` asks it for the engine's tenants,
+`plan_coresidency` admits or defers them at a slowdown SLO
+(`repro_torch.sched.AdmissionController`), `serve_online` serves a churn
+workload, with an optional fault storm, through
+`repro_torch.sched.OnlineReplacer` (every seedable epoch resumed through
+`window_cell`), and `apply_admission` keeps one core's residents,
+parking the rest in `deferred`.  Tenant profiles are Embench bench names;
+model-zoo "<arch>:<phase>" workloads come with the port of
+`repro.workloads`.
 """
 from __future__ import annotations
 
@@ -39,11 +48,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import expert_slots as es
+from repro_torch.core import isa, simulator
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.serve.batching import ContinuousBatcher
 
-__all__ = ["model_batcher", "Tenant", "EngineConfig", "SlotServeEngine"]
+__all__ = ["model_batcher", "Tenant", "EngineConfig", "SlotServeEngine",
+           "estimate_fleet_contention"]
 
 
 def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
@@ -135,6 +146,7 @@ class SlotServeEngine:
         # the slot pools are host-side bookkeeping, fed once a step
         self.shard_states = [es.init_state(self.slot_cfg, "cpu")
                              for _ in range(engine_cfg.expert_shards)]
+        self.deferred: list[Tenant] = []   # tenants parked by admission
         self.stats = {"fills": 0, "accesses": 0, "fill_seconds": 0.0,
                       "steps": 0, "per_tenant": {t.name: 0 for t in tenants}}
         for t in tenants:
@@ -200,9 +212,133 @@ class SlotServeEngine:
             self._account(torch.cat(loads).cpu().numpy())
 
     # ------------------------------------------------------------------
+    def fleet_contention(self, tenant_benches: dict[str, str],
+                         **kw) -> dict:
+        """Slot-contention estimate for this engine's tenant set.
+
+        `tenant_benches` maps tenant name -> instruction-mix profile
+        (benchmark name).  Slot count defaults to the engine's
+        `slots_per_shard` and the device to the engine's; everything else
+        forwards to `estimate_fleet_contention`.
+        """
+        benches = [tenant_benches[t.name] for t in self.tenants]
+        kw.setdefault("num_slots", self.ecfg.slots_per_shard)
+        kw.setdefault("device", self.device)
+        return estimate_fleet_contention(benches, **kw)
+
+    # ------------------------------------------------------------------
+    def plan_coresidency(self, tenant_benches: dict[str, str], *,
+                         slo: float = 1.5, num_cores: int = 1,
+                         model=None, max_rounds: int = 8,
+                         slo_weights: dict[str, float] | None = None):
+        """Contention-aware admission plan for this engine's tenant set.
+
+        Instead of taking tenant order as given, ask `repro_torch.sched`
+        which tenants should co-reside: tenants are placed onto
+        `num_cores` model replicas minimising predicted worst-tenant slot
+        contention, and any tenant whose best placement still violates the
+        slowdown `slo` is deferred.  `slo_weights` (name -> positive
+        weight) protects foreground tenants: deferral picks the worst
+        slowdown/weight, so batch tenants absorb contention first.
+        Without a `model`, one is made on the engine's device.  Returns
+        the `AdmissionDecision`; use `apply_admission` to restrict this
+        engine to one core's residents.
+        """
+        from repro_torch.sched.admission import AdmissionController
+        from repro_torch.sched.placement import (ContentionModel,
+                                                 PlacementConfig)
+
+        if model is None:
+            model = ContentionModel(
+                PlacementConfig(num_slots=self.ecfg.slots_per_shard),
+                device=self.device)
+        ctrl = AdmissionController(slo=slo, num_cores=num_cores,
+                                   model=model, max_rounds=max_rounds)
+        return ctrl.decide({t.name: tenant_benches[t.name]
+                            for t in self.tenants},
+                           slo_weights=slo_weights)
+
+    def serve_online(self, events, *, policy: str = "warm",
+                     num_cores: int = 2, model=None, online_cfg=None,
+                     num_epochs: int | None = None, apply_core=None,
+                     faults=None, recovery: str = "warm"):
+        """Serve a churn workload (tenants arriving/leaving mid-serve)
+        with online re-placement — the dynamic counterpart of the static
+        `plan_coresidency` flow.
+
+        `events` is a sequence of `repro_torch.sched.TenantEvent`s; the
+        epoch loop (`repro_torch.sched.online.OnlineReplacer`, on the
+        engine's device) carries warm slot/bitstream state per core across
+        epochs and, under the default "warm" policy, migrates a tenant
+        only when the predicted contention saving beats the measured
+        warm-state migration penalty.  The per-epoch advances and the
+        migration probes resume `FleetState`s through the interleaved
+        engine's resumable entry (`window_cell` on the card), and the
+        contention model's one-shot sweeps ride its windowed entry
+        (`window_grid`).  Returns the `OnlineReport`.  With
+        `apply_core=<i>` the engine afterwards restricts itself to the
+        tenants the final placement left on that core (deferred and
+        other-core tenants are parked as `apply_admission` does).
+
+        `faults` (a `repro_torch.sched.FaultPlan`) injects a deterministic
+        fault storm into the serve; `recovery` picks the reaction
+        (`repro_torch.sched.RECOVERY_POLICIES`: "warm" evacuation /
+        "cold_restart" / "none") — the report's `fault_log` and
+        `worst_lifetime_slowdown` quantify the outcome.  Faulted epochs
+        may route segments through the reference machine: SEU- or
+        flush-mutated caches are not interleaved-seedable until they
+        re-warm, and degraded (masked) cores always take it.
+        """
+        from repro_torch.sched.online import OnlineConfig, OnlineReplacer
+        from repro_torch.sched.placement import PlacementConfig
+
+        if online_cfg is None:
+            online_cfg = OnlineConfig(
+                num_cores=num_cores,
+                placement=PlacementConfig(
+                    num_slots=self.ecfg.slots_per_shard))
+        rep = OnlineReplacer(online_cfg, model=model, policy=policy,
+                             faults=faults, recovery=recovery,
+                             device=self.device).run(events, num_epochs)
+        if apply_core is not None:
+            if not 0 <= apply_core < len(rep.final_cores):
+                raise ValueError(
+                    f"core index {apply_core} out of range for "
+                    f"{len(rep.final_cores)} cores")
+            keep_names = set(rep.final_cores[apply_core])
+            keep = [t for t in self.tenants if t.name in keep_names]
+            self.deferred += [t for t in self.tenants
+                              if t.name not in keep_names]
+            self.tenants = keep
+        return rep
+
+    def apply_admission(self, decision, core: int = 0) -> list[Tenant]:
+        """Keep only `core`'s admitted co-residents; park everything else.
+
+        Deferred (and other-core) tenants move to `self.deferred` so the
+        caller can serve them in a later round or on another replica.
+        Returns the retained tenant list (in placement order).
+        """
+        keep_names: tuple[str, ...] = ()
+        if decision.placement is not None:
+            if not 0 <= core < len(decision.placement.cores):
+                raise ValueError(
+                    f"core index {core} out of range for a placement with "
+                    f"{len(decision.placement.cores)} cores")
+            keep_names = decision.placement.cores[core]
+        by_name = {t.name: t for t in self.tenants}
+        keep = [by_name[n] for n in keep_names if n in by_name]
+        kept = {t.name for t in keep}
+        self.deferred += [t for t in self.tenants if t.name not in kept]
+        self.tenants = keep
+        return keep
+
+    # ------------------------------------------------------------------
     def run(self, total_steps: int) -> dict:
         if not self.tenants:
-            raise ValueError("engine has no tenants — nothing to serve")
+            raise ValueError(
+                "engine has no resident tenants (all deferred by "
+                "admission?) — nothing to serve")
         ti = 0
         quantum_left = self.ecfg.quantum_tokens
         for _ in range(total_steps):
@@ -225,3 +361,91 @@ class SlotServeEngine:
             "overhead_frac": s["fill_seconds"] /
             max(compute_s + s["fill_seconds"], 1e-12),
         }
+
+
+def estimate_fleet_contention(benches: list[str], *, num_slots: int = 4,
+                              miss_latency: int = 50,
+                              quantum_cycles=20_000,
+                              handler_cycles: int = 150,
+                              priorities=None,
+                              scenarios=None,
+                              trace_len: int = 60_000,
+                              total_steps: int = 160_000,
+                              device="cuda") -> dict:
+    """Multi-tenant slot-contention estimate from the core fleet simulator.
+
+    Maps each tenant to an instruction-mix profile (an Embench name from
+    `repro_torch.core.traces`; model-zoo "<arch>:<phase>" workloads come
+    with the port of `repro.workloads` and raise a ValueError until then)
+    and runs the SAME `simulate_many` machinery that produces the paper's
+    Fig. 7 numbers, on `device`: one reconfigurable core, round-robin
+    quantum, slot state persisting across switches.  Per tenant it reports
+    the fleet CPI, the solo (unpreempted) CPI, and their ratio — the
+    contention slowdown a tenant should expect from co-residency — plus
+    fleet-level switch/miss counters, equal to the reference's.
+
+    `scenarios` may be one `SlotScenario` or a per-tenant list (tenants can
+    disagree about which opcodes are slotted).  `quantum_cycles` may be a
+    per-tenant vector and `priorities` a per-tenant weight tuple — the
+    heterogeneous-quantum / weighted-round-robin axes of `SchedulerConfig`.
+    """
+    from repro_torch.sched.placement import resolve_trace
+
+    dev = resolve_device(device)
+    if scenarios is None:
+        scenarios = isa.SCENARIO_2
+    cfg = simulator.ReconfigConfig(num_slots=num_slots,
+                                   miss_latency=miss_latency)
+    sched = simulator.SchedulerConfig(quantum_cycles=quantum_cycles,
+                                      handler_cycles=handler_cycles,
+                                      priorities=priorities)
+    tr = np.stack([resolve_trace(n, trace_len) for n in benches])
+    # one-shot preempted fleet with a warm bitstream cache: the dispatcher
+    # serves this from the interleave-aware engine (the window kernel)
+    fleet = simulator.simulate_many(tr, cfg, scenarios, sched, total_steps,
+                                    device=dev)
+
+    # solo reference: each tenant alone on the core, never preempted — both
+    # branches route through `sweep_fleet`, whose dispatcher collapses these
+    # warm-cache unpreempted runs into stack-distance passes (no scan)
+    solo_sched = simulator.SchedulerConfig.no_preempt(handler_cycles)
+    if isinstance(scenarios, (list, tuple)):
+        # per-tenant taxonomies: one P=1 sweep cell per (bench, scenario)
+        solo_cpis = [
+            float(simulator.sweep_fleet(
+                tr[i:i + 1, None, :], [miss_latency], s, solo_sched,
+                slot_counts=[num_slots], total_steps=trace_len,
+                device=dev).cpi.cpu().numpy()[0, 0, 0, 0])
+            for i, s in enumerate(scenarios)]
+    else:
+        # shared taxonomy: all P solo runs as one batched sweep cell
+        solo = simulator.sweep_fleet(
+            tr[:, None, :], [miss_latency], scenarios, solo_sched,
+            slot_counts=[num_slots], total_steps=trace_len, device=dev)
+        solo_cpis = [float(c) for c in solo.cpi.cpu().numpy()[:, 0, 0, 0]]
+    per_tenant = {}
+    fleet_cpi = fleet.cpi.cpu().numpy()
+    fleet_instrs = fleet.instructions.cpu().numpy()
+    fleet_misses = fleet.slot_misses.cpu().numpy()
+    for i, name in enumerate(benches):
+        solo_cpi = solo_cpis[i]
+        # a tenant the round-robin never reached (total_steps exhausted
+        # inside earlier quanta) has no CPI — report NaN, not the
+        # "zero slowdown" that a 0/instructions division would fake
+        scheduled = int(fleet_instrs[i]) > 0
+        cpi_i = float(fleet_cpi[i]) if scheduled else float("nan")
+        per_tenant[f"{i}:{name}"] = {
+            "fleet_cpi": cpi_i,
+            "solo_cpi": solo_cpi,
+            "contention_slowdown": cpi_i / solo_cpi,
+            "slot_misses": int(fleet_misses[i]),
+            "scheduled": scheduled,
+        }
+    return {
+        "tenants": per_tenant,
+        "switches": int(fleet.switches),
+        "total_slot_misses": int(fleet_misses.sum()),
+        "num_slots": num_slots,
+        "miss_latency": miss_latency,
+        "quantum_cycles": quantum_cycles,
+    }

@@ -15,7 +15,9 @@ widened exactly, so the same tolerances hold), from zero and from given
 states, on both kernel routes ("chunked" and "step") at ragged T and at
 strong decay, the route each wrapper picks and counts, plus the recurrent
 models' paths; the attention kernels at
-RecurrentGemma's head dim 256 with 16 query heads over 1.  Marked `cuda`;
+RecurrentGemma's head dim 256 with 16 query heads over 1; and one online
+serve of `repro_torch.sched` under a fault storm on the card against the
+same serve on the CPU.  Marked `cuda`;
 every test skips without a CUDA device.  On a machine with a card:
 `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
 """
@@ -139,6 +141,51 @@ def test_sweep_and_resume_on_card_match_scan(dev):
     for a, b in zip(na[2:] + tuple(na.slot_st) + tuple(na.bs_st),
                     nb[2:] + tuple(nb.slot_st) + tuple(nb.bs_st)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_online_serve_under_a_storm_on_card_matches_cpu(dev, monkeypatch):
+    """One online serve under a seeded fault storm (`repro_torch.sched`)
+    on the card equals the same serve on the CPU, report and snapshot;
+    on the card the seedable segments resume through `window_cell` on the
+    bitset route and the faulted ones take the reference machine."""
+    from repro_torch import sched
+    scans = []
+    real = simulator._simulate_fleet_impl
+
+    def spy(*a, **kw):
+        scans.append(a[0].device.type)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(simulator, "_simulate_fleet_impl", spy)
+    pc = sched.PlacementConfig(num_slots=4, quantum_cycles=2_000,
+                               trace_len=2_000, steps_per_program=2_000)
+    events = [sched.TenantEvent(*e) for e in (
+        (0, "arrive", "fgA", "minver"), (0, "arrive", "fgB", "cubic"),
+        (0, "arrive", "m1", "qrduino"), (1, "arrive", "m2", "edn"),
+        (1, "arrive", "m3", "crc32"), (2, "arrive", "m4", "tarfind"),
+        (4, "depart", "m3", None), (4, "arrive", "m5", "tarfind"))]
+    storm = sched.FaultPlan.storm(seed=5, num_epochs=6, num_cores=3,
+                                  p_core_loss=0.15, p_seu=0.2, p_flush=0.15,
+                                  p_stall=0.15)
+
+    def serve(device):
+        rep = sched.OnlineReplacer(
+            sched.OnlineConfig(num_cores=3, epoch_steps=2_000,
+                               probe_steps=800, placement=pc),
+            faults=storm, device=device)
+        return dataclasses.asdict(rep.run(events, 6)), rep.snapshot()
+
+    want = serve("cpu")
+    assert scans, "the storm sent no segment to the reference machine"
+    scans.clear()
+    launches, routes = wd.window_cell.launches, dict(wd.window_cell.routes)
+    got = serve(dev)
+    n = wd.window_cell.launches - launches
+    assert n > 0
+    assert {r: k - routes[r] for r, k in wd.window_cell.routes.items()} \
+        == {"bitset": n, "generic": 0}
+    assert scans and set(scans) == {"cuda"}
+    np.testing.assert_equal(got, want)
 
 
 def test_kernel_refuses_what_shared_memory_cannot_hold(dev):

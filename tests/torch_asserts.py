@@ -1,7 +1,10 @@
 """Exact-equality helpers shared by the port's parity suites
 (test_torch_*.py): a
 port result (torch tensors) against the JAX package's (jax arrays), field
-by field, tolerance 0."""
+by field, tolerance 0; `assert_tree_equal` the same for nested host
+values (sched reports, logs and snapshots)."""
+import dataclasses
+
 import jax
 import numpy as np
 import torch
@@ -39,3 +42,40 @@ def assert_state_equal(t_state, j_state):
     for name in tsim.FleetState._fields[2:]:
         np.testing.assert_array_equal(getattr(got, name),
                                       getattr(want, name), err_msg=name)
+
+
+def assert_tree_equal(got, want, path="root"):
+    """Exact equality of two nested values of dicts, lists, tuples, numpy
+    arrays and Python scalars — types included, so a port snapshot or
+    report is the reference's value, not merely an equal one.  Dataclasses
+    (reports, placements) compare field by field."""
+    if dataclasses.is_dataclass(want):
+        assert dataclasses.is_dataclass(got), path
+        assert [f.name for f in dataclasses.fields(got)] == \
+            [f.name for f in dataclasses.fields(want)], path
+        for f in dataclasses.fields(want):
+            assert_tree_equal(getattr(got, f.name), getattr(want, f.name),
+                              f"{path}.{f.name}")
+        return
+    assert type(got) is type(want), (path, type(got), type(want))
+    if isinstance(want, dict):
+        assert list(got) == list(want), (path, list(got), list(want))
+        for k in want:
+            assert_tree_equal(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), (path, len(got), len(want))
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_tree_equal(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype, (path, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    elif isinstance(want, float) and np.isnan(want):
+        assert np.isnan(got), path
+    else:
+        assert got == want, (path, got, want)
+
+
+def without_seconds(log):
+    """A `resolve_log` (list of dicts) with its wall-clock field dropped:
+    the only field that may differ between the packages."""
+    return [{k: v for k, v in row.items() if k != "seconds"} for row in log]
