@@ -62,6 +62,24 @@ report as JSON; perf_slot_decode's fleet rows as text; and
 BENCH_fleet.json's anchors hold (1.075/1.075/1.113, 1.0768, 1.0441 with
 1 migration, 1.0377/1.0551/2.3480).
 
+The workloads slice (`repro_torch.workloads` and the simulator's perf
+benchmarks): `workloads_mix` prints the zoo's 20-cell mix table from the
+port's op counter (the smoke models under a `TorchDispatchMode` with
+plain kernels, counted by a host worker process while the card runs the
+earlier phases), each cell's isa-group fractions, hottest F groups and
+seconds, the prefill/decode asymmetry checked; `model_serve_study` places
+a mixed prefill/decode fleet of model-zoo tenants on the card (every
+candidate group priced through `window_grid`; placed <= random mean at
+P=2 and P=3, no reference-machine dispatch, the rows held to the port's
+CPU digest: the JAX package's come from XLA-counted mixes); `perf_sweep`
+runs its five engine sections at the reference's sizes (each fast engine
+held bit for bit to the reference machine, whose arms run once after a
+one-graph warm-up; the current step to the frozen first step design, both
+replayed as CUDA graphs), then `window_kernel`, the kernel against the
+plain window pass on a one-shot sweep and a resumed segment, parity
+before timing, its launches per route printed apart (they compare the
+kernel with its plain version and are not counted on the kernels line).
+
 The dense-model slice: it holds the flash and decode attention kernels
 against their plain versions (bf16 and f32, head dims 64/128, GQA, MQA,
 ragged lengths, windows, kv_len 0/1/S) at test_kernels.py's tolerances;
@@ -120,8 +138,8 @@ route, every decode step on the step route).
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
 the `kernels` line (all eight kernels: launches on their slice's main
-path, the window rows' with the sched phases' added and split in
-`launches_by_slice`; times, bound, error) and
+path, the window rows' with the sched, model_serve_study and perf_sweep
+phases' added and split in `launches_by_slice`; times, bound, error) and
 `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the port's sources beside it, the script exits
@@ -168,6 +186,10 @@ EXPECTED_ROWS = {
     "perf_slot_decode_fleet": "c771e6fecf71018a56bff74e7662f23fb1077ea0",
     "engine_plan": "23927f9e334602444799753147976d570ab8212d",
     "engine_online": "7f0cf39bfdf601a9c8b8af4c9c17b40ca8feae62",
+    # model_serve_study on the port's own counted mixes (the port on the
+    # CPU, held by tests/test_torch_workloads.py): the JAX package's rows
+    # come from XLA-counted mixes and are not expected here
+    "model_serve_study_torch": "e29e2a34282d0217c5b9a4adcb3331ee3cddd14e",
 }
 ANCHORS = {
     "fig4": "minver_speedup_F=27.50 (paper 27.5)",
@@ -1702,6 +1724,122 @@ def phase_sched_engine(dev, launches: dict) -> None:
          perf_slot_decode_fleet_s=fleet_rows_s,
          plan_matches_jax=True, report_matches_jax=True,
          fleet_rows_match_jax=True, **launches["sched_engine"])
+
+
+# ---------------------------------------------------------------------------
+# the workloads slice: the zoo's mixes, model_serve_study, perf_sweep
+# ---------------------------------------------------------------------------
+
+def mix_table_on_host() -> dict:
+    """The zoo's 20-cell mix table from the port's counter
+    (`repro_torch.workloads.opcounts`, the smoke models on the CPU), in a
+    host worker process while the card runs the other phases: each cell's
+    `OpCount` as a dict and the seconds its count took."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    torch.set_num_threads(1)
+    from repro_torch import workloads
+    from repro_torch.workloads import opcounts
+    out = {}
+    for name in workloads.list_workloads():
+        t0 = time.perf_counter()
+        oc = opcounts.model_opcount(*name.rsplit(":", 1))
+        out[name] = {"opcount": oc.to_dict(),
+                     "s": time.perf_counter() - t0}
+    return out
+
+
+def phase_workloads_mix(mix) -> None:
+    """The host's mix table into this process's counter cache (so the
+    study below lowers the same counts), each cell's fractions, hottest F
+    groups and counting seconds printed, the phase asymmetry checked."""
+    from repro_torch.core import isa
+    from repro_torch.workloads import lowering, opcounts
+    t0 = time.perf_counter()
+    table = mix.result()
+    waited_s = time.perf_counter() - t0
+    cells = {}
+    for name, row in table.items():
+        arch, phase = name.rsplit(":", 1)
+        oc = opcounts.OpCount.from_dict(row["opcount"])
+        opcounts._CACHE[(arch, phase)] = oc
+        spec = lowering.spec_from_opcount(arch, phase, oc)
+        check(abs(sum(spec.frac) - 1.0) < 1e-9, f"{name} fractions")
+        cells[name] = {"frac": {g: round(x, 6) for g, x in
+                                zip(isa.GROUP_NAMES, spec.frac) if x > 0},
+                       "hot_f_groups": list(spec.hot_f_groups),
+                       "s": round(row["s"], 3)}
+    for arch in {n.rsplit(":", 1)[0] for n in table}:
+        pre = cells[f"{arch}:prefill"]["frac"]
+        dec = cells[f"{arch}:decode"]["frac"]
+        check(pre["fma"] > dec["fma"] and dec["base"] > pre["base"],
+              f"{arch}: no prefill/decode asymmetry ({pre}, {dec})")
+    emit("workloads_mix", cells=cells, count=len(cells),
+         counter_s=round(sum(r["s"] for r in table.values()), 3),
+         waited_s=round(waited_s, 3), where="host process, plain kernels")
+
+
+def phase_model_serve_study(dev, launches: dict) -> None:
+    """`model_serve_study` on the card over the port's mixes: every
+    candidate group priced through `window_grid`, the reference machine
+    never dispatched, placed <= random mean at P=2 and P=3 (its own
+    asserts), the rows held to the port's CPU digest."""
+    from repro_torch.bench import model_serve_study
+    with window_launches("model_serve_study", launches):
+        t0 = time.perf_counter()
+        rows, out = model_serve_study.run(dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    check(out["scan_dispatches"] == 0, "the study took the reference "
+                                       "machine")
+    check(sha(rows) == EXPECTED_ROWS["model_serve_study_torch"],
+          "model_serve_study rows differ from the port's CPU rows")
+    anchors = {f"P{p}": {k: out[p][k] for k in (
+        "placed_worst", "placed_mean", "random_worst_mean",
+        "random_worst_best", "fifo_worst")} for p in (2, 3)}
+    for p, a in anchors.items():
+        check(a["placed_worst"] <= a["random_worst_mean"] + 1e-9,
+              f"{p}: placed {a} above random")
+    emit("model_serve_study", seconds=round(secs, 3), anchors=anchors,
+         scan_dispatches=out["scan_dispatches"], finding=rows[-1][2:],
+         trace_crc=[r[len("# trace_crc,"):] for r in rows
+                    if r.startswith("# trace_crc")],
+         rows_match_cpu=True, **launches["model_serve_study"])
+
+
+def phase_perf_sweep(dev, launches: dict) -> None:
+    """`perf_sweep`'s five engine sections on the card, parity asserted in
+    each before timing (the reference-machine arms run once, as their
+    parity run; the fast arms best of `REPS`), then its `window_kernel`
+    section: the kernel against the plain window pass.  Sections 1-5
+    count as this path's window launches; the `window_kernel` section's
+    compare the kernel with its plain version and are printed apart."""
+    from repro_torch.bench import perf_sweep
+    sections, seconds = {}, {}
+    with window_launches("perf_sweep", launches):
+        for name, fn in perf_sweep.SECTIONS.items():
+            if name == "window_kernel":
+                continue
+            t0 = time.perf_counter()
+            sections[name] = fn(dev)
+            seconds[name] = round(time.perf_counter() - t0, 3)
+    for name, r in sections.items():
+        for e in (r.values() if name == "preempted_grid" else [r]):
+            check(e["parity"] is True, f"perf_sweep {name} parity")
+    emit("perf_sweep", sections=sections, section_seconds=seconds,
+         seconds=round(sum(seconds.values()), 3), parity=True,
+         **launches["perf_sweep"])
+    compare = {}
+    with window_launches("window_kernel", compare):
+        t0 = time.perf_counter()
+        r = perf_sweep.SECTIONS["window_kernel"](dev)
+        secs = time.perf_counter() - t0
+    check(r["kernel_mode"] == "cuda", f"window_kernel ran {r['kernel_mode']}")
+    check(r["routes"] == compare["window_kernel"]["routes"],
+          f"window_kernel routes {r['routes']}")
+    emit("window_kernel", seconds=round(secs, 3), parity=True, **r,
+         launches=compare["window_kernel"]["launches"],
+         counted_in_kernels_line=False)
 
 
 # ---------------------------------------------------------------------------
@@ -3381,12 +3519,14 @@ def main() -> None:
     pool = ProcessPoolExecutor(PLAIN_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
     try:
-        run(opts, card, cases, start_plain(pool, cases))
+        # the zoo's mix table first: it is counted on the host too
+        mix = pool.submit(mix_table_on_host)
+        run(opts, card, cases, start_plain(pool, cases), mix)
     finally:
         pool.shutdown(cancel_futures=True)
 
 
-def run(opts, card: str, cases: list, plain: list) -> None:
+def run(opts, card: str, cases: list, plain: list, mix) -> None:
     from repro_torch.kernels import window_distance as wd
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -3457,6 +3597,26 @@ def run(opts, card: str, cases: list, plain: list) -> None:
         row["routes"] = {r: row["routes"][r] + sum(
             ph["routes"][name][r] for ph in sched.values())
             for r in wd.ROUTES}
+
+    # the workloads slice: the mix table (counted on the host meanwhile),
+    # model_serve_study and perf_sweep; their window launches join the
+    # window rows
+    t_new = time.perf_counter()
+    phase_workloads_mix(mix)
+    new = {}
+    phase_model_serve_study(dev, new)
+    phase_perf_sweep(dev, new)
+    emit("workloads_path", phases=new,
+         seconds=round(time.perf_counter() - t_new, 3))
+    for row in kernels:
+        name = row["name"]
+        for slice_, ph in (("workloads", "model_serve_study"),
+                           ("perf_sweep", "perf_sweep")):
+            n = new[ph]["launches"][name]
+            row["launches_by_slice"][slice_] = n
+            row["launches"] += n
+            row["routes"] = {r: row["routes"][r] + new[ph]["routes"][name][r]
+                             for r in wd.ROUTES}
 
     # the dense-model slice
     attn_errs = {"flash_attention": 0.0, "decode_attention": 0.0}

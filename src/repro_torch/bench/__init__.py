@@ -1,8 +1,9 @@
 """The paper-figure benchmarks of the port and their derived anchors.
 
 Each `bench_*` function runs one module on `device` and returns
-(rows, derived): the module's printed rows and the one-line anchor the JAX
-package's `benchmarks/run.py` records for it.  The anchors are integer
+(rows, derived[, report]): the module's printed rows, the one-line anchor
+the JAX package's `benchmarks/run.py` records for it and, for the perf
+benchmarks, the full report `--record` keeps.  The anchors are integer
 simulations turned into float32 CPIs, so they do not depend on the device:
 fig4 minver_speedup_F=27.50, fig5 5/8/9, fig6 avg_s2@50c=0.687, fig7
 abs 0.81 of IMF (x3.13/x1.39/x1.67), P=4 fleet 0.935/0.757/0.452.
@@ -13,6 +14,10 @@ The sched benchmarks (`placement_study`, `placement_search`,
 "# finding" line, as the JAX runner does (anchors: P2/P3/P4
 1.075/1.075/1.113, worst 1.0768, 1.0441 with 1 migration,
 1.0377/1.0551/2.3480); `perf_slot_decode` its `slots,2,4.0` row.
+`model_serve_study` (the model-zoo fleet, `repro_torch.workloads`)
+derives its "# finding" line; `perf_sweep` and `window_kernel` (the
+simulator's engines head to head, parity before timing) their summary
+lines, and hand their reports to `--record`.
 `python -m repro_torch.bench` runs them all.
 """
 from __future__ import annotations
@@ -22,9 +27,10 @@ import numpy as np
 from repro_torch.bench import (bench_expert_slots, bitstream_study,
                                chaos_serve, fig4_extensions,
                                fig5_classification, fig6_single, fig7_multi,
-                               fleet_scale_study, online_churn,
-                               perf_slot_decode, placement_search,
-                               placement_study)
+                               fleet_scale_study, model_serve_study,
+                               online_churn, perf_slot_decode, perf_sweep,
+                               placement_search, placement_study,
+                               window_kernel)
 
 
 def _capture(main, **kw) -> list[str]:
@@ -115,6 +121,21 @@ def bench_perf_slot_decode(device="cuda"):
     return lines, (best[0] if best else "")
 
 
+def bench_model_serve_study(device="cuda"):
+    lines, _ = model_serve_study.run(device)
+    return lines, finding(lines)
+
+
+def bench_perf_sweep(device="cuda"):
+    lines, report = perf_sweep.run(device)
+    return lines, lines[-1][2:], report
+
+
+def bench_window_kernel(device="cuda"):
+    lines, report = window_kernel.run(device)
+    return lines, finding(lines), report
+
+
 BENCHES = {
     "fig4_extensions": bench_fig4,
     "fig5_classification": bench_fig5,
@@ -129,4 +150,7 @@ BENCHES = {
     "online_churn": bench_online_churn,
     "chaos_serve": bench_chaos_serve,
     "fleet_scale_study": bench_fleet_scale_study,
+    "model_serve_study": bench_model_serve_study,
+    "perf_sweep": bench_perf_sweep,
+    "window_kernel": bench_window_kernel,
 }

@@ -5,7 +5,8 @@ Prints each module's rows, then `name,seconds,derived` per module.  With
 `--record` it also writes `experiments/bench_torch.json` (under the
 working directory; `experiments/` is git-ignored) with the device's
 provenance: backend, device name, torch/CUDA versions and, on a card, the
-name and power limit `nvidia-smi` reports.
+name and power limit `nvidia-smi` reports, and the full report of each
+perf benchmark (`perf_sweep`, `window_kernel`).
 """
 from __future__ import annotations
 
@@ -45,12 +46,14 @@ def main(argv=None) -> None:
     results = {}
     for name in args.only or BENCHES:
         t0 = time.perf_counter()
-        lines, derived = BENCHES[name](device=device)
+        lines, derived, *report = BENCHES[name](device=device)
         secs = time.perf_counter() - t0
         for line in lines:
             print(line)
         print(f"{name},{secs:.3f},{derived}", flush=True)
         results[name] = {"seconds": secs, "derived": derived}
+        if report:
+            results[name]["report"] = report[0]
     if args.record:
         os.makedirs("experiments", exist_ok=True)
         with open(os.path.join("experiments", "bench_torch.json"), "w") as f:

@@ -40,7 +40,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch.core import isa, simulator, traces
+from repro_torch.core import isa, simulator
 from repro_torch.device import resolve_device
 from repro_torch.sched.topology import Topology
 
@@ -78,21 +78,6 @@ def _pad_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
 
 
-def resolve_trace(name: str, length: int, seed: int = 0) -> np.ndarray:
-    """Tenant name -> trace: an Embench bench is
-    `traces.build_trace(name, length, seed=seed)`, bit for bit the
-    reference's `workloads.resolve_trace`; anything else raises a
-    ValueError naming both valid sets (the model-zoo set is not in the
-    port yet)."""
-    if name in traces.BENCHES:
-        return traces.build_trace(name, length, seed=seed)
-    raise ValueError(
-        f"unknown tenant name {name!r}: expected an Embench bench "
-        f"({sorted(traces.BENCHES)}) or a model-zoo workload "
-        f"'<arch>:<phase>'; model-zoo workloads come with the port of "
-        f"repro.workloads, so the port accepts Embench benches only")
-
-
 class ContentionModel:
     """Batched, cached slowdown predictions for co-residency groups.
 
@@ -108,11 +93,10 @@ class ContentionModel:
     `scenarios` maps benchmark name -> `SlotScenario` for tenants whose
     binaries slot different opcodes (per-tenant slot taxonomies); benches
     absent from the mapping use the shared `scenario` default.  Tenant
-    names are Embench bench names (`repro_torch.core.traces.BENCHES`,
-    built by `traces.build_trace` exactly as the reference's
-    `workloads.resolve_trace` builds them); model-zoo "<arch>:<phase>"
-    workloads come with the port of `repro.workloads`, and until then any
-    other name raises a ValueError naming both sets.
+    names are Embench bench names or model-zoo "<arch>:<phase>"
+    workloads, resolved by `repro_torch.workloads.resolve_trace` as the
+    reference resolves them; any other name raises a ValueError naming
+    both sets.
 
     `path` is handed to every underlying `sweep_fleet` call: the default
     "auto" serves solo references from the unpreempted stack-distance
@@ -147,7 +131,14 @@ class ContentionModel:
     # ------------------------------------------------------------------
     def trace(self, bench: str) -> np.ndarray:
         if bench not in self._traces:
-            self._traces[bench] = resolve_trace(
+            # repro_torch.workloads.resolve_trace accepts Embench benches
+            # (bit for bit the core traces stream) and model-zoo
+            # "<arch>:<phase>" workloads, and raises a ValueError naming
+            # both valid sets otherwise; imported lazily so pure-Embench
+            # placement never touches the model/configs stack
+            from repro_torch import workloads
+
+            self._traces[bench] = workloads.resolve_trace(
                 bench, self.cfg.trace_len, seed=self.trace_seed)
         return self._traces[bench]
 

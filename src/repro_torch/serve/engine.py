@@ -36,9 +36,8 @@ Fig. 7 numbers (the window kernel's `window_grid` on the card);
 workload, with an optional fault storm, through
 `repro_torch.sched.OnlineReplacer` (every seedable epoch resumed through
 `window_cell`), and `apply_admission` keeps one core's residents,
-parking the rest in `deferred`.  Tenant profiles are Embench bench names;
-model-zoo "<arch>:<phase>" workloads come with the port of
-`repro.workloads`.
+parking the rest in `deferred`.  Tenant profiles are Embench bench names
+or model-zoo "<arch>:<phase>" workloads (`repro_torch.workloads`).
 """
 from __future__ import annotations
 
@@ -375,9 +374,9 @@ def estimate_fleet_contention(benches: list[str], *, num_slots: int = 4,
     """Multi-tenant slot-contention estimate from the core fleet simulator.
 
     Maps each tenant to an instruction-mix profile (an Embench name from
-    `repro_torch.core.traces`; model-zoo "<arch>:<phase>" workloads come
-    with the port of `repro.workloads` and raise a ValueError until then)
-    and runs the SAME `simulate_many` machinery that produces the paper's
+    `repro_torch.core.traces` or a model-zoo "<arch>:<phase>" workload,
+    through `repro_torch.workloads.resolve_trace`) and runs the SAME
+    `simulate_many` machinery that produces the paper's
     Fig. 7 numbers, on `device`: one reconfigurable core, round-robin
     quantum, slot state persisting across switches.  Per tenant it reports
     the fleet CPI, the solo (unpreempted) CPI, and their ratio — the
@@ -389,7 +388,10 @@ def estimate_fleet_contention(benches: list[str], *, num_slots: int = 4,
     per-tenant vector and `priorities` a per-tenant weight tuple — the
     heterogeneous-quantum / weighted-round-robin axes of `SchedulerConfig`.
     """
-    from repro_torch.sched.placement import resolve_trace
+    # resolve_trace: Embench names pass through to core traces bit for
+    # bit; "<arch>:<phase>" names lower the model zoo (lazy import keeps
+    # the serve layer importable without the model/configs stack)
+    from repro_torch import workloads
 
     dev = resolve_device(device)
     if scenarios is None:
@@ -399,7 +401,7 @@ def estimate_fleet_contention(benches: list[str], *, num_slots: int = 4,
     sched = simulator.SchedulerConfig(quantum_cycles=quantum_cycles,
                                       handler_cycles=handler_cycles,
                                       priorities=priorities)
-    tr = np.stack([resolve_trace(n, trace_len) for n in benches])
+    tr = np.stack([workloads.resolve_trace(n, trace_len) for n in benches])
     # one-shot preempted fleet with a warm bitstream cache: the dispatcher
     # serves this from the interleave-aware engine (the window kernel)
     fleet = simulator.simulate_many(tr, cfg, scenarios, sched, total_steps,

@@ -17,7 +17,9 @@ strong decay, the route each wrapper picks and counts, plus the recurrent
 models' paths; the attention kernels at
 RecurrentGemma's head dim 256 with 16 query heads over 1; and one online
 serve of `repro_torch.sched` under a fault storm on the card against the
-same serve on the CPU.  Marked `cuda`;
+same serve on the CPU; the `window_kernel` bench with the real kernel,
+two `perf_sweep` sections at a small size, and `model_serve_study`'s P=2
+case against the CPU's on the same mixes.  Marked `cuda`;
 every test skips without a CUDA device.  On a machine with a card:
 `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
 """
@@ -902,3 +904,42 @@ def test_recurrent_model_on_card_matches_plain_and_launches_kernels(dev,
         outs[mode] = torch.cat(steps, 1)
     torch.testing.assert_close(outs["auto"], outs["plain"], atol=1e-4,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the simulator's perf benchmarks and the model-zoo study on the card
+# ---------------------------------------------------------------------------
+
+def test_window_kernel_bench_runs_the_kernel_with_parity(dev):
+    from repro_torch.bench import window_kernel
+
+    rows, r = window_kernel.run(dev)      # asserts parity before timing
+    assert r["kernel_mode"] == "cuda"
+    assert r["routes"]["window_grid"]["bitset"] > 0
+    assert r["routes"]["window_cell"]["bitset"] > 0
+    assert r["routes"]["window_grid"]["generic"] == 0
+    assert r["kernel_s"] > 0 and r["resume_kernel_s"] > 0
+
+
+def test_perf_sweep_sections_on_card_at_a_small_size(dev, monkeypatch):
+    from repro_torch.bench import perf_sweep
+
+    for k, v in dict(P4_FLEETS=2, P4_TRACE_LEN=300, P4_TOTAL_STEPS=700,
+                     P4_QUANTUM=150, RS_TRACE_LEN=400,
+                     RS_TOTAL_STEPS=900).items():
+        monkeypatch.setattr(perf_sweep, k, v)
+    # both arms of the P=4 section replay CUDA graphs of the step
+    assert perf_sweep.bench_p4_preempted(dev)["parity"]
+    r = perf_sweep.bench_resumed_segment(dev)
+    assert r["parity"] and r["speedup"] > 0
+
+
+def test_model_serve_study_p2_on_card_matches_cpu(dev):
+    from repro_torch.bench import model_serve_study as mss
+    from repro_torch.sched import ContentionModel
+
+    # the same mixes: the port's counter, cached in this process
+    on_card = mss.study(2, mss.FLEET, ContentionModel(mss.CFG, device=dev))
+    on_cpu = mss.study(2, mss.FLEET, ContentionModel(mss.CFG, device="cpu"))
+    assert on_card == on_cpu
+    assert on_card["placed_worst"] <= on_card["random_worst_mean"]

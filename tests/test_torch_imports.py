@@ -66,7 +66,10 @@ def test_every_port_module_imports_without_jax():
               "models.layers", "models.kvcache", "models.transformer",
               "models.moe", "models.rglru", "models.rwkv6",
               "models.convert", "core.expert_slots", "serve.batching",
-              "serve.engine", "launch.serve", "bench.bench_expert_slots"):
+              "serve.engine", "launch.serve", "bench.bench_expert_slots",
+              "workloads", "workloads.opcounts", "workloads.lowering",
+              "bench.model_serve_study", "bench.perf_sweep",
+              "bench.window_kernel"):
         assert f"repro_torch.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

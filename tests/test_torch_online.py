@@ -20,13 +20,16 @@ from repro.configs import base as jcb
 from repro.core import isa as jisa
 from repro.models import transformer as jt
 from repro.serve import engine as je
+from repro.workloads import opcounts as jopc
 from repro_torch import sched as T
+from repro_torch import workloads as tworkloads
 from repro_torch.bench import chaos_serve as tchaos
 from repro_torch.bench import online_churn as tchurn
 from repro_torch.configs import base as tcb
 from repro_torch.core import isa as tisa
 from repro_torch.models import convert
 from repro_torch.serve import engine as te
+from repro_torch.workloads import opcounts as topc
 from torch_asserts import DEV, assert_tree_equal, without_seconds
 
 PC = dict(num_slots=4, miss_latency=50, quantum_cycles=2_000,
@@ -154,7 +157,8 @@ def engines():
 
 
 @pytest.mark.parametrize("scenarios", ["shared", "per_tenant"])
-def test_estimate_fleet_contention_matches_reference(engines, scenarios):
+def test_estimate_fleet_contention_matches_reference(engines, scenarios,
+                                                      monkeypatch):
     kw = dict(num_slots=2, quantum_cycles=1_000, trace_len=3_000,
               total_steps=8_000)
     tscen = jscen = None
@@ -171,8 +175,15 @@ def test_estimate_fleet_contention_matches_reference(engines, scenarios):
                                      priorities=(2, 1), **kw),
         je.estimate_fleet_contention(["cubic", "edn"], priorities=(2, 1),
                                      **kw))
-    with pytest.raises(ValueError, match="repro.workloads"):
-        te.estimate_fleet_contention(["granite-3-2b:decode"], device=DEV)
+    # a model-zoo name prices as the reference's, given the same OpCount
+    zoo = "granite-3-2b:decode"
+    oc = jopc.model_opcount(*zoo.split(":")).to_dict()
+    monkeypatch.setattr(topc, "_CACHE", {tuple(zoo.split(":")):
+                                         topc.OpCount.from_dict(oc)})
+    monkeypatch.setattr(tworkloads, "_SPECS", {})
+    assert_tree_equal(
+        te.estimate_fleet_contention([zoo, "edn"], device=DEV, **kw),
+        je.estimate_fleet_contention([zoo, "edn"], **kw))
 
 
 @pytest.mark.parametrize("slo,weights,core", [(9.0, None, 1),

@@ -4,7 +4,8 @@ package's on the CPU, exactly: the geometry and reload tiers, the policy
 schedules, `ContentionModel.predict` (shared and per-tenant taxonomies, a
 degraded width) with its sweep counts, `place_tenants`, `place_fleet`,
 the baselines and `score_placement`, `AdmissionController.decide` with
-and without SLO weights, the Embench-only name rule, and the rows of
+and without SLO weights, the tenant-name rule (Embench and model-zoo
+names), and the rows of
 `placement_study` and `placement_search` at a reduced size; then
 `fleet_scale_study` at a smoke size and `perf_slot_decode` (its slot rows
 on the JAX package's weights, carried across, over fewer steps; its
@@ -24,13 +25,16 @@ from repro import sched as J
 from repro.configs import base as jcb
 from repro.core import isa as jisa
 from repro.models import transformer as jt
+from repro.workloads import opcounts as jopc
 from repro_torch import sched as T
+from repro_torch import workloads as tworkloads
 from repro_torch.bench import fleet_scale_study as tfleet
 from repro_torch.bench import perf_slot_decode as tslot
 from repro_torch.bench import placement_search as tsearch
 from repro_torch.bench import placement_study as tstudy
 from repro_torch.core import isa as tisa
 from repro_torch.models import convert
+from repro_torch.workloads import opcounts as topc
 from torch_asserts import DEV, assert_tree_equal
 
 PC = dict(num_slots=4, miss_latency=50, quantum_cycles=2_000,
@@ -159,12 +163,18 @@ def test_predict_matches_reference(case):
     assert t.sim_calls == calls
 
 
-def test_names_are_embench_only(models):
-    tm, _ = models
+def test_names_resolve_embench_and_model_zoo(models, monkeypatch):
+    tm, jm = models
     with pytest.raises(ValueError, match="unknown tenant name.*nosuch"):
         tm.predict([("nosuch", "minver")])
-    with pytest.raises(ValueError, match="repro.workloads"):
-        tm.solo_cpi("granite-3-2b:decode")
+    # a model-zoo name prices as the reference's, given the same OpCount
+    zoo = "granite-3-2b:decode"
+    oc = jopc.model_opcount(*zoo.split(":")).to_dict()
+    monkeypatch.setattr(topc, "_CACHE", {tuple(zoo.split(":")):
+                                         topc.OpCount.from_dict(oc)})
+    monkeypatch.setattr(tworkloads, "_SPECS", {})
+    assert tm.solo_cpi(zoo) == jm.solo_cpi(zoo)
+    np.testing.assert_array_equal(tm.trace(zoo), jm.trace(zoo))
     with pytest.raises(ValueError, match="num_slots"):
         tm.predict([("minver",)], num_slots=5)
 
