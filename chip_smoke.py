@@ -135,11 +135,29 @@ step and an admission, and serves 16 requests through
 launches counted, and each scan's routes: every prefill on the chunked
 route, every decode step on the step route).
 
+The training slice (`repro_torch.data`, `optim`, `train`, `checkpoint`,
+`runtime`, `launch.train`): `train_grads` holds each of the four kernels
+on the training path (flash attention, `moe_gmm`, both scans: the
+kernel's forward with its plain version's gradient) against the plain
+route, gradients of a fixed random cotangent within 1e-4 relative L2, at
+the shapes of their checks above in f32; `train_granite`, the slice's
+main path, trains granite-3-2b at full width and depth (40 layers, bf16
+weights with an f32 master, m and v, remat "full", loss_chunk 512, batch
+4 of 1,024 tokens, 8 steps) through `launch.train.run`: the loss falls,
+flash launches twice a layer a step and takes one plain backward a layer
+a step, decode attention and `moe_gmm_skip` never launch; the median step
+time, tokens/s, peak memory and flash's plain-vjp share of a step are
+printed; `train_restart` runs the supervised restart at full width cut
+to 2 layers (8 steps, a checkpoint every 4, a failure before step 6):
+one restart, the final loss the clean run's within rel 1e-4.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
 the `kernels` line (all eight kernels: launches on their slice's main
 path, the window rows' with the sched, model_serve_study and perf_sweep
-phases' added and split in `launches_by_slice`; times, bound, error) and
+phases' added and split in `launches_by_slice`; times, bound, error; the
+four training kernels' `train_launches` and `train_backward_recomputes`
+on granite's training run) and
 `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the port's sources beside it, the script exits
@@ -3504,6 +3522,339 @@ def phase_recurrent(dev, attn_errs: dict) -> tuple[list, dict]:
     return entries, attn
 
 
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("flash_attention", "moe_gmm", "rglru_scan", "rwkv6_scan")
+TRAIN_GRAD_REL = 1e-4       # kernel route against plain, relative L2
+# the slice's main path: granite-3-2b at full width and depth, bf16 with
+# the f32 master, m and v, remat "full" and loss_chunk 512 (the config's
+# own), batch 4 of 1,024 tokens, 8 steps through the launcher
+TRAIN = dict(smoke=False, steps=8, batch=4, seq=1024, log_every=0)
+GRANITE = "granite-3-2b"
+# the first step's loss against `loss_fn(use_kernel="plain")` on the same
+# weights and batch, relative: bf16 logits walk ~5e-2 apart in relative L2
+# over 40 layers (DEEP_BF16_REL), ~5e-2 a token's loss at logits of std ~1;
+# averaged over 4,092 tokens that is ~1e-4 of a loss of ~11
+TRAIN_LOSS_REL = 1e-3
+# the supervised restart, cut in depth to 2 layers (a checkpoint of the
+# full-depth state would write ~35 GB): 8 steps, a checkpoint every 4, a
+# failure injected before step 6
+GRANITE_2L = "granite-3-2b-2l"
+RESTART = dict(TRAIN, ckpt_every=4)
+RESTART_FAIL_AT = 6
+
+
+def _train_wrappers() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import rglru_scan as rgs
+    from repro_torch.kernels import rwkv6_scan as rws
+    return {"flash_attention": fa.flash_attention, "moe_gmm": gmm.moe_gmm,
+            "rglru_scan": rgs.rglru_scan, "rwkv6_scan": rws.rwkv6_scan}
+
+
+def _train_cases(dev, gen):
+    """(kernel, what, args, keywords) of the training path's calls at
+    batch TRAIN["batch"] of TRAIN["seq"] tokens from a zero state, full
+    width: granite's attention in bf16 (its own dtype) and f32,
+    recurrentgemma's local attention in f32, arctic's grouped FFN in bf16
+    (its own dtype) at its training capacity, cut to 4 of its 128 experts,
+    and recurrentgemma's RG-LRU and rwkv6's WKV in f32."""
+    from repro_torch.configs import base as cb
+    from repro_torch.models import moe
+    cb.load_all()
+    b, t = TRAIN["batch"], TRAIN["seq"]
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    g, rg, rw, arc = (cb.get_config(a) for a in (
+        GRANITE, RG, RWKV, "arctic-480b"))
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = (r(b, t, g.num_heads, g.head_dim),
+               r(b, t, g.num_kv_heads, g.head_dim),
+               r(b, t, g.num_kv_heads, g.head_dim))
+        yield ("flash_attention", f"{GRANITE} {str(dtype)[6:]} B={b} T={t} "
+               f"H={g.num_heads}/{g.num_kv_heads} D={g.head_dim}",
+               tuple(x.to(dtype) for x in qkv), {"window": 0})
+    yield ("flash_attention", f"{RG} local float32 B={b} T={t} "
+           f"H={rg.num_heads}/{rg.num_kv_heads} D={rg.head_dim} "
+           f"window={rg.window}",
+           (r(b, t, rg.num_heads, rg.head_dim),
+            r(b, t, rg.num_kv_heads, rg.head_dim),
+            r(b, t, rg.num_kv_heads, rg.head_dim)), {"window": rg.window})
+    e, c = 4, moe._capacity(b * t, arc)
+    d, f = arc.d_model, arc.d_ff
+    yield ("moe_gmm", f"arctic-480b bfloat16 E={e} of {arc.num_experts} "
+           f"C={c} D={d} F={f} gated",
+           tuple(x.to(torch.bfloat16) for x in (
+               r(e, c, d) * 0.5, r(e, d, f) * d ** -0.5,
+               r(e, d, f) * d ** -0.5, r(e, f, d) * f ** -0.5)),
+           {"gated": True})
+    case = (b, t, rg.lru_width, False)
+    yield ("rglru_scan", f"{RG} float32 {case}",
+           _scan_inputs("rglru_scan", case, torch.float32, gen, dev), {})
+    case = (b, t, rw.d_model // rw.head_dim, rw.head_dim, False)
+    yield ("rwkv6_scan", f"{RWKV} float32 {case}",
+           _scan_inputs("rwkv6_scan", case, torch.float32, gen, dev), {})
+
+
+def _train_tol(name: str, dtype: torch.dtype) -> float:
+    if name in SCAN_TOL:
+        return SCAN_TOL[name]
+    return (ATTN_TOL if name == "flash_attention" else GMM_TOL)[
+        str(dtype).split(".")[-1]]
+
+
+def phase_train_grads(dev) -> None:
+    """train_grads: each of the four Functions (a kernel's forward, its
+    plain version's gradient) at the training path's shapes, against
+    `use_kernel="plain"` on the same inputs: the outputs within the
+    kernel's tolerance against its plain version, bf16 flash also within
+    ACCURACY_FLOOR_FACTOR of the bf16 rounding floor against float64, and
+    the gradients of every input for a fixed random cotangent of every
+    output within TRAIN_GRAD_REL relative L2 (the wiring: both routes'
+    backwards are plain bodies, the scans' kernel route's chunked)."""
+    fns = _train_wrappers()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = {}
+    for name, what, args, kw in _train_cases(dev, gen):
+        outs, grads = {}, {}
+        for mode in ("auto", "plain"):
+            leaves = [None if a is None else a.detach().requires_grad_(True)
+                      for a in args]
+            got = fns[name](*leaves, use_kernel=mode, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            cot = torch.Generator(device=dev).manual_seed(5)
+            loss = sum((o.float() * torch.randn(o.shape, generator=cot,
+                                                device=dev)).sum()
+                       for o in got)
+            grads[mode] = torch.autograd.grad(
+                loss, [a for a in leaves if a is not None])
+            outs[mode] = [o.detach() for o in got]
+            del got, loss, leaves
+        dtype = args[0].dtype
+        tol = _train_tol(name, dtype)
+        for o, w in zip(outs["auto"], outs["plain"], strict=True):
+            torch.testing.assert_close(
+                o.float(), w.float(), atol=tol, rtol=tol,
+                msg=lambda m: f"train_grads {name} {what}: {m}")
+        row = {"max_abs_err": max(float((o.float() - w.float()).abs().max())
+                                  for o, w in zip(outs["auto"],
+                                                  outs["plain"])),
+               "tolerance": tol}
+        if name == "flash_attention" and dtype == torch.bfloat16:
+            q, k, v = args
+            pos = torch.arange(q.shape[1], device=dev)
+            want = _attention_f64(q, k, v, pos[None, :] <= pos[:, None])
+            row["rel_l2_f64"] = _rel(outs["auto"][0], want)
+            row["floor_f64"] = _rel(want.to(torch.bfloat16), want)
+            del want
+            check(row["rel_l2_f64"] <= ACCURACY_FLOOR_FACTOR
+                  * row["floor_f64"],
+                  f"flash at {what}: relative L2 {row['rel_l2_f64']} against "
+                  f"float64, above {ACCURACY_FLOOR_FACTOR} x the bf16 "
+                  f"rounding floor {row['floor_f64']}")
+        row["grad_rel_l2"] = max(
+            float((g - w).norm() / w.norm().clamp_min(1e-30))
+            for g, w in zip(grads["auto"], grads["plain"], strict=True))
+        check(row["grad_rel_l2"] < TRAIN_GRAD_REL,
+              f"{name} {what}: the kernel route's gradients are "
+              f"{row['grad_rel_l2']} (relative L2) from the plain route's")
+        cases[f"{name} {what}"] = row
+        del outs, grads, args
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    emit("train_grads", grad_tolerance=TRAIN_GRAD_REL,
+         floor_factor=ACCURACY_FLOOR_FACTOR, cases=cases, match=True)
+
+
+def _train_counts() -> dict:
+    fns = _train_wrappers()
+    return {n: {"launches": fn.launches,
+                "backward_recomputes": fn.backward_recomputes}
+            for n, fn in fns.items()}
+
+
+def _reset_train_counts() -> None:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import moe_gmm as gmm
+    for fn in _train_wrappers().values():
+        fn.launches = 0
+        fn.backward_recomputes = 0
+    da.decode_attention.launches = 0
+    gmm.moe_gmm_skip.launches = 0
+
+
+def _drawn_params(cfg, dev):
+    """`cfg`'s weights drawn on the card from seed 0
+    (`transformer.init_params`), for `run(init_params=...)`: the host's
+    numpy draw of granite's 2.5 B weights takes ~40 s."""
+    from repro_torch.models import transformer
+    return transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def _plain_first_loss(cfg, params, dev) -> float:
+    """`loss_fn(use_kernel="plain")` on the training run's first batch."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    b, t = TRAIN["batch"], TRAIN["seq"]
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=t, global_batch=b)
+    batch = train.batch_for(cfg, dcfg, 0, {"tokens": ((b, t), torch.int32)},
+                            dev)
+    with torch.no_grad():
+        loss, _ = transformer.loss_fn(cfg, params, batch, use_kernel="plain")
+    return float(loss)
+
+
+def _flash_vjp_ms(dev, cfg, batch: int, seq: int) -> float:
+    """Event-timed milliseconds of one flash call's backward on the
+    training path (the plain block scan's forward and vector-Jacobian
+    product) at the path's shape, bf16, on its own."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    q = r(batch, seq, cfg.num_heads, cfg.head_dim)
+    k = r(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    v = r(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    out = fa.flash_attention(q, k, v, causal=True)
+    cot = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), cot,
+                                               retain_graph=True), 5)
+
+
+def phase_train_granite(dev, card: str) -> dict:
+    """train_granite, the slice's main path: `launch.train.run` of
+    granite-3-2b at full width and depth, its weights drawn on the card.
+    The first step's loss must agree with `loss_fn(use_kernel="plain")`
+    on the same weights and batch within TRAIN_LOSS_REL, the loss must
+    fall (the mean of the last 2 steps below the first 2's), flash must
+    launch on every layer (twice a step: the forward and remat's
+    recompute) and take one plain backward a layer a step, and neither
+    decode attention nor moe_gmm_skip may launch.  Reports the median step
+    time over steps 3-8, tokens/s, the peak memory and an estimate of
+    flash's plain-vjp backward's share of the step (one such backward
+    timed on its own, times the layers).  Returns the kernels' counts."""
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import train
+    cb.load_all()
+    cfg = cb.get_config(GRANITE)
+    check(cfg.remat == "full" and cfg.loss_chunk == 512
+          and cfg.dtype == "bfloat16", f"{GRANITE}'s config changed")
+    params = _drawn_params(cfg, dev)
+    plain_loss = _plain_first_loss(cfg, params, dev)
+    torch.cuda.empty_cache()
+    _reset_train_counts()
+    report = train.run(GRANITE, device=dev, init_params=params, **TRAIN)
+    counts = _train_counts()
+    del params
+    off_path = {"decode_attention": da.decode_attention.launches,
+                "moe_gmm_skip": gmm.moe_gmm_skip.launches}
+    losses = report["losses"]
+    steps, layers = TRAIN["steps"], cfg.num_layers
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"granite training losses {losses}")
+    first_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(first_rel <= TRAIN_LOSS_REL,
+          f"granite's first loss {losses[0]} against the plain route's "
+          f"{plain_loss} on the same weights and batch")
+    check(np.mean(losses[-2:]) < np.mean(losses[:2]),
+          f"granite's loss did not fall: {losses}")
+    check(counts["flash_attention"] == {
+        "launches": 2 * layers * steps,
+        "backward_recomputes": layers * steps},
+        f"flash on the training path: {counts['flash_attention']}")
+    check(all(c == {"launches": 0, "backward_recomputes": 0}
+              for n, c in counts.items() if n != "flash_attention"),
+          f"other kernels on granite's training path: {counts}")
+    check(off_path == {"decode_attention": 0, "moe_gmm_skip": 0},
+          f"kernels off the training path launched: {off_path}")
+    torch.cuda.empty_cache()
+    vjp_ms = _flash_vjp_ms(dev, cfg, TRAIN["batch"], TRAIN["seq"])
+    step_ms = report["step_s"] * 1e3
+    emit("train_granite", arch=GRANITE, card=card, layers=layers,
+         d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+         d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.dtype, remat=cfg.remat,
+         loss_chunk=cfg.loss_chunk, batch=TRAIN["batch"], seq=TRAIN["seq"],
+         steps=steps, losses=losses, plain_first_loss=plain_loss,
+         first_loss_rel_diff=first_rel, first_loss_tolerance=TRAIN_LOSS_REL,
+         step_times_s=report["step_times"],
+         step_ms_median_3_8=round(step_ms, 3),
+         tokens_per_s=round(report["tokens_per_s"], 1),
+         peak_memory_gb=round(report["peak_memory_bytes"] / 1e9, 3),
+         flash_vjp_ms_one_call=round(vjp_ms, 4),
+         flash_vjp_share_of_step_estimate=round(layers * vjp_ms / step_ms, 4),
+         counts=counts, off_path_launches=off_path)
+    return counts
+
+
+def phase_train_restart(dev) -> None:
+    """train_restart: the supervised restart at full width cut to 2
+    layers, each run from the same weights drawn on the card: 8 steps with
+    a checkpoint every 4, clean and with a failure injected before step 6;
+    one restart, and the final loss equal to the clean run's within the
+    reference test's rel 1e-4."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import train
+    cb.load_all()
+    cb.register(dataclasses.replace(cb.get_config(GRANITE), name=GRANITE_2L,
+                                    num_layers=2))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        runs = {}
+        for what, fail_at in (("clean", None), ("fail", RESTART_FAIL_AT)):
+            ckpt_dir = os.path.join(tmp, what)
+            runs[what] = train.run(
+                GRANITE_2L, device=dev, ckpt_dir=ckpt_dir, fail_at=fail_at,
+                init_params=_drawn_params(cb.get_config(GRANITE_2L), dev),
+                **RESTART)
+            shutil.rmtree(ckpt_dir)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    clean, failed = runs["clean"], runs["fail"]
+    check(failed["restarts"] == 1 and clean["restarts"] == 0,
+          f"restarts {clean['restarts']} / {failed['restarts']}")
+    check(failed["final_step"] == clean["final_step"] == RESTART["steps"],
+          "the restarted run did not finish")
+    rel = abs(failed["losses"][-1] - clean["losses"][-1]) / abs(
+        clean["losses"][-1])
+    check(rel <= 1e-4, f"restarted final loss {failed['losses'][-1]} "
+                       f"against the clean run's {clean['losses'][-1]}")
+    replayed = RESTART["steps"] - RESTART_FAIL_AT // RESTART[
+        "ckpt_every"] * RESTART["ckpt_every"]
+    emit("train_restart", arch=GRANITE_2L, reduced={"num_layers": [40, 2]},
+         steps=RESTART["steps"], ckpt_every=RESTART["ckpt_every"],
+         fail_at=RESTART_FAIL_AT, restarts=failed["restarts"],
+         steps_run=[clean["steps_run"], failed["steps_run"]],
+         clean_losses=clean["losses"], failed_losses=failed["losses"],
+         final_rel_diff=rel,
+         bit_equal=failed["losses"][-1] == clean["losses"][-1],
+         replayed_steps=replayed,
+         bit_equal_replayed=failed["losses"][-replayed:] ==
+         clean["losses"][-replayed:])
+
+
+def phase_train(dev, card: str) -> dict:
+    """The training slice: the Functions' gradients, then granite's
+    training (its main path: the counts it returns) and the supervised
+    restart."""
+    t0 = time.perf_counter()
+    phase_train_grads(dev)
+    torch.cuda.empty_cache()
+    counts = phase_train_granite(dev, card)
+    torch.cuda.empty_cache()
+    phase_train_restart(dev)
+    emit("train_path", seconds=round(time.perf_counter() - t0, 3))
+    return counts
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3684,6 +4035,16 @@ def run(opts, card: str, cases: list, plain: list, mix) -> None:
         "d256": attn256[name]}
         for name in ("flash_attention", "decode_attention")]
     kernels += rec_kernels
+    torch.cuda.empty_cache()
+
+    # the training slice: the four kernels on its path, their launches and
+    # their plain backwards on granite's training run
+    train_counts = phase_train(dev, card)
+    for row in kernels:
+        if row["name"] in train_counts:
+            row["train_launches"] = train_counts[row["name"]]["launches"]
+            row["train_backward_recomputes"] = \
+                train_counts[row["name"]]["backward_recomputes"]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

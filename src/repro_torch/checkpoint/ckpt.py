@@ -1,0 +1,160 @@
+"""Checkpointing with an integrity manifest: PyTorch port of
+`repro.checkpoint.ckpt`, in its on-disk layout.
+
+Layout:   <dir>/step_<k>/
+              manifest.json        {step, tree structure, leaf checksums}
+              arr_<i>.npy          one file per leaf
+
+Leaves are numbered in `jax.tree_util`'s flatten order of the same tree
+(`repro_torch.tree_util`: NamedTuple fields in order, dict keys sorted,
+lists in order, `None` no leaf), each leaf's manifest entry holds its
+shape, dtype name and the sha1 of its bytes, and bfloat16 (float8_e4m3fn)
+leaves are stored as raw uint16 (uint8) views with the logical dtype in
+the manifest.  So a checkpoint that either package writes restores leaf
+for leaf in the other.  A save is written to a temporary directory and
+renamed into place: a crashed save leaves no manifest, so `latest_step`
+never returns a partial checkpoint.  `restore` checks every sha1 and puts
+the leaves on a device (the JAX package's re-shard onto a mesh has no
+counterpart on one card).
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import tempfile
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.tree_util import leaves, tree_map, unflatten
+
+__all__ = ["save", "AsyncSaver", "latest_step", "restore"]
+
+# numpy has no bfloat16 / float8: stored as raw views, the logical dtype
+# in the manifest
+# logical dtype name: (its torch dtype, the stored numpy dtype, the raw
+# dtype numpy and torch share for the bytes)
+_EXOTIC = {"bfloat16": (torch.bfloat16, np.uint16, np.int16),
+           "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8, np.uint8)}
+_RAW = {np.int16: torch.int16, np.uint8: torch.uint8}
+_BY_TORCH = {v[0]: k for k, v in _EXOTIC.items()}
+
+
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """(the array to store, the logical dtype name) of a leaf: a tensor
+    (copied to the host) or a numpy array."""
+    if not isinstance(leaf, torch.Tensor):
+        arr = np.asarray(leaf)
+        return arr, str(arr.dtype)
+    t = leaf.detach().cpu()
+    if t.dtype in _BY_TORCH:
+        name = _BY_TORCH[t.dtype]
+        _, stored, raw = _EXOTIC[name]
+        return t.view(_RAW[raw]).numpy().view(stored), name
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def _structure(tree) -> str:
+    """The tree's structure as text, '*' a leaf (the manifest's
+    `treedef`; neither package reads it back)."""
+    return str(tree_map(lambda _: "*", tree))
+
+
+def save(directory: str, step: int, tree) -> str:
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
+    manifest = {"step": step, "treedef": _structure(tree), "leaves": []}
+    for i, leaf in enumerate(leaves(tree)):
+        stored, dtype_name = _to_numpy(leaf)
+        np.save(os.path.join(tmp, f"arr_{i}.npy"), stored)
+        manifest["leaves"].append({
+            "shape": list(stored.shape),
+            "dtype": dtype_name,
+            "sha1": hashlib.sha1(stored.tobytes()).hexdigest(),
+        })
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # atomic publish
+    return final
+
+
+class AsyncSaver:
+    """Overlap checkpoint writes with training: `save()` copies the
+    leaves to host memory (blocking only for those copies) and writes
+    them on a background thread; `wait()` joins before the next save or
+    shutdown — the write-then-rename protocol keeps partial saves
+    invisible either way.  The host copies are the saver's own, so the
+    caller may update the tensors in place meanwhile."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def save(self, directory: str, step: int, tree) -> None:
+        self.wait()
+        host_tree = tree_map(
+            lambda leaf: leaf.detach().to("cpu", copy=True)
+            if isinstance(leaf, torch.Tensor) else np.array(leaf), tree)
+
+        def work():
+            try:
+                save(directory, step, host_tree)
+            except BaseException as e:  # noqa: BLE001 — surfaced in wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def latest_step(directory: str) -> int | None:
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and os.path.exists(
+                os.path.join(directory, name, "manifest.json")):
+            steps.append(int(name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def restore(directory: str, step: int, like_tree, device="cuda"):
+    """Load the step-k checkpoint into the structure of `like_tree` (e.g.
+    `train.step.abstract_state`'s meta tensors), each leaf a tensor on
+    `device` in its stored dtype; raises IOError on a checksum
+    mismatch."""
+    dev = resolve_device(device)
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    n = len(leaves(like_tree))
+    if n != len(manifest["leaves"]):
+        raise ValueError(f"tree structure changed: {n} leaves, the "
+                         f"checkpoint has {len(manifest['leaves'])}")
+    out = []
+    for i, want in enumerate(manifest["leaves"]):
+        arr = np.load(os.path.join(path, f"arr_{i}.npy"))
+        if hashlib.sha1(arr.tobytes()).hexdigest() != want["sha1"]:
+            raise IOError(f"checksum mismatch for leaf {i} at step {step}")
+        if want["dtype"] in _EXOTIC:
+            logical, _, raw = _EXOTIC[want["dtype"]]
+            t = torch.from_numpy(arr.view(raw)).view(logical)
+        else:
+            t = torch.from_numpy(arr)
+        out.append(t.to(dev))
+    return unflatten(like_tree, out)

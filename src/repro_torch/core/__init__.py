@@ -2,6 +2,6 @@
 stack-distance engines, simulator, scheduler) and the slot-resident
 expert tracker (`expert_slots`), ported to PyTorch."""
 from repro_torch.core import (  # noqa: F401
-    bitstream, isa, scheduler, simulator, slots, stackdist, stackdist_cold,
-    stackdist_interleaved, traces,
+    bitstream, expert_slots, isa, scheduler, simulator, slots, stackdist,
+    stackdist_cold, stackdist_interleaved, traces,
 )

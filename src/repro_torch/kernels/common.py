@@ -1,5 +1,15 @@
-"""What every kernel of the port shares: the `use_kernel` knob and the
-`nvcc` build into `kernels/build/`.
+"""What every kernel of the port shares: the `use_kernel` knob, the
+gradient rule and the `nvcc` build into `kernels/build/`.
+
+Gradients: the JAX package trains through no Pallas kernel and defines no
+backward kernel, so the port writes none.  A kernel that lies on the
+training path (flash attention, `moe_gmm`, the two scans) runs its
+forward through `with_plain_vjp`: when autograd records, the launch goes
+through `KernelVjp`, whose backward re-runs the wrapper's plain body on
+the saved inputs and returns its vector-Jacobian product, the gradient of
+the function the reference differentiates.  A kernel on no training path
+(decode attention, `moe_gmm_skip`) calls `no_vjp` before it launches and
+raises where autograd would record.
 
 Each kernel is one CUDA C++ source under `csrc/` with a plain C entry
 point.  `build` compiles it for `sm_90a` at first use, into a shared
@@ -21,8 +31,8 @@ import tempfile
 
 import torch
 
-__all__ = ["resolve", "build", "library", "ptxas_report", "BUILD_DIR",
-           "NVCC_FLAGS"]
+__all__ = ["resolve", "with_plain_vjp", "no_vjp", "KernelVjp", "build",
+           "library", "ptxas_report", "BUILD_DIR", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -57,6 +67,69 @@ def resolve(use_kernel, device: torch.device) -> bool:
             "use_kernel='kernel' needs CUDA tensors: the port's kernels are "
             "CUDA-only (no interpret mode); use 'auto' or 'plain' on the CPU")
     return mode != "plain"
+
+
+def _recorded(inputs) -> bool:
+    """Would autograd record an op on `inputs`?"""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
+
+
+class KernelVjp(torch.autograd.Function):
+    """A kernel's forward with its plain body's gradient.
+
+    `apply(owner, launch, plain, *inputs)`: `launch(*inputs)` runs the
+    kernel (and counts it); `plain(*inputs)` is the same function in
+    differentiable PyTorch.  The inputs are tensors or None (an absent
+    state, which gets no gradient); the arguments that are not tensors
+    are bound into `launch` and `plain`.  The backward runs `plain` under
+    grad on detached copies of the saved inputs, returns
+    `torch.autograd.grad` of it for each input that needs one, in that
+    input's dtype, and adds one to `owner.backward_recomputes`."""
+
+    @staticmethod
+    def forward(ctx, owner, launch, plain, *inputs):
+        ctx.owner, ctx.plain = owner, plain
+        ctx.save_for_backward(*inputs)
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(inputs, need)]
+        wanted = [t for t, n in zip(leaves, need) if n]
+        with torch.enable_grad():
+            outs = ctx.plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True))
+        ctx.owner.backward_recomputes += 1
+        return (None, None, None,
+                *(next(got) if n else None for n in need))
+
+
+def with_plain_vjp(owner, launch, plain, *inputs):
+    """`launch(*inputs)`, through `KernelVjp` when autograd records (grad
+    enabled and an input requires grad), so that the gradient reaches the
+    inputs as the plain body's vector-Jacobian product."""
+    if _recorded(inputs):
+        return KernelVjp.apply(owner, launch, plain, *inputs)
+    return launch(*inputs)
+
+
+def no_vjp(name: str, *inputs) -> None:
+    """Refuse to launch kernel `name`, which has no gradient, where
+    autograd would record (grad enabled and an input requires grad)."""
+    if _recorded(inputs):
+        raise RuntimeError(
+            f"{name} lies on no training path and has no gradient: call it "
+            f"under torch.no_grad(), or pass use_kernel='plain' to "
+            f"differentiate its plain version")
 
 
 def _nvcc() -> str:

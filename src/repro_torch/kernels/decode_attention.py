@@ -223,9 +223,11 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, use_kernel=None):
     `kv_len[b]` positions of k/v_cache (B, S, KH, dh).  Returns (B, H,
     dh).  CUDA tensors launch the decode kernel; CPU tensors, or
     `use_kernel="plain"`, run `decode_attention_plain`;
-    `use_kernel="kernel"` raises on CPU."""
+    `use_kernel="kernel"` raises on CPU, and the kernel, which lies on
+    no training path, raises where autograd would record."""
     if not common.resolve(use_kernel, q.device) or q.device.type != "cuda":
         return decode_attention_plain(q, k_cache, v_cache, kv_len)
+    common.no_vjp("decode_attention", q, k_cache, v_cache)
     out = _launch(q, k_cache, v_cache, kv_len)
     decode_attention.launches += 1
     return out

@@ -23,10 +23,14 @@ JAX models run) and the Pallas kernel
 `flash_attention` owns the choice: CUDA tensors launch the kernel (and
 count it in `flash_attention.launches`) or raise, CPU tensors run the
 plain version; `use_kernel="plain"` forces the plain version anywhere.
+Where autograd records, the kernel's backward is the plain version's
+vector-Jacobian product (`common.KernelVjp`): the JAX models train
+through the pure-JAX block scan and no Pallas backward exists.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -178,7 +182,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (`q_offset` 0, no `kv_len`/`kv_start`), as the Pallas kernel does;
     the other form raises `NotImplementedError` on CUDA.  CPU tensors, or
     `use_kernel="plain"`, run `flash_attention_plain`;
-    `use_kernel="kernel"` raises on CPU."""
+    `use_kernel="kernel"` raises on CPU.  Under autograd the kernel's
+    output takes the plain version's gradient (`common.with_plain_vjp`,
+    counted in `flash_attention.backward_recomputes`)."""
     if not common.resolve(use_kernel, q.device) or q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block=block, q_offset=q_offset,
@@ -188,9 +194,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             "the flash kernel takes q_offset=0 and no kv_len/kv_start, as "
             "the Pallas kernel does: attend over the whole sequence with "
             "causal=True and a window instead")
+    return _with_plain_vjp(q, k, v, causal=causal, window=window,
+                           block=block)
+
+
+def _with_plain_vjp(q, k, v, *, causal: bool, window: int, block: int):
+    """The kernel, with `flash_attention_plain`'s gradient."""
+    return common.with_plain_vjp(
+        flash_attention,
+        functools.partial(_kernel, causal=causal, window=window),
+        functools.partial(flash_attention_plain, causal=causal,
+                          window=window, block=block), q, k, v)
+
+
+def _kernel(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
     out = _launch(q, k, v, causal=causal, window=window)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.backward_recomputes = 0

@@ -31,12 +31,17 @@ its `wi` there).  `moe_gmm_skip` takes `counts` (E,) int32: experts with
 kernel (and count it in the wrapper's `.launches`, and the route it took
 in `.routes`, e.g. `moe_gmm.routes == {"mma": 16, "fma": 0}`) or raise,
 CPU tensors run the plain version; `use_kernel="plain"` forces the plain
-version anywhere.  The Pallas kernels' block sizes are TPU tiling knobs
-with no counterpart here.
+version anywhere.  Where autograd records, `moe_gmm` (on every training
+path of a MoE arch) takes the plain version's vector-Jacobian product as
+its backward (`common.KernelVjp`, counted in
+`moe_gmm.backward_recomputes`); `moe_gmm_skip` (decode only) raises.  The
+Pallas kernels' block sizes are TPU tiling knobs with no counterpart
+here.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -161,6 +166,18 @@ def moe_gmm(x, wg, wi, wo, *, gated: bool = True, use_kernel=None):
     run `moe_gmm_plain`; `use_kernel="kernel"` raises on CPU."""
     if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
         return moe_gmm_plain(x, wg, wi, wo, gated=gated)
+    # the ungated form reads no wi: it is not an input of the function
+    return _with_plain_vjp(x, wg, wi if gated else None, wo, gated=gated)
+
+
+def _with_plain_vjp(x, wg, wi, wo, *, gated: bool):
+    """The kernel, with `moe_gmm_plain`'s gradient."""
+    return common.with_plain_vjp(
+        moe_gmm, functools.partial(_kernel, gated=gated),
+        functools.partial(moe_gmm_plain, gated=gated), x, wg, wi, wo)
+
+
+def _kernel(x, wg, wi, wo, *, gated: bool) -> torch.Tensor:
     out, route = _launch(x, wg, wi, wo, None, gated)
     moe_gmm.launches += 1
     moe_gmm.routes[route] += 1
@@ -174,6 +191,7 @@ def moe_gmm_skip(x, wg, wi, wo, counts, *, gated: bool = True,
     rule as `moe_gmm`'s."""
     if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
         return moe_gmm_skip_plain(x, wg, wi, wo, counts, gated=gated)
+    common.no_vjp("moe_gmm_skip", x, wg, wi, wo)
     out, route = _launch(x, wg, wi, wo, counts, gated)
     moe_gmm_skip.launches += 1
     moe_gmm_skip.routes[route] += 1
@@ -181,6 +199,7 @@ def moe_gmm_skip(x, wg, wi, wo, counts, *, gated: bool = True,
 
 
 moe_gmm.launches = 0
+moe_gmm.backward_recomputes = 0
 moe_gmm_skip.launches = 0
 moe_gmm.routes = dict.fromkeys(ROUTES, 0)
 moe_gmm_skip.routes = dict.fromkeys(ROUTES, 0)

@@ -18,8 +18,9 @@ and returns h only, the model needs both ends of the state.
   any device.
 * `rglru_scan_chunked_plain`: the chunked route's algebra in plain
   PyTorch (per-chunk aggregates, the carry across chunks, the rescan of
-  each chunk from its true start), for the CPU tests; never on the
-  model's path.
+  each chunk from its true start), for the CPU tests, and the body whose
+  vector-Jacobian product is the kernel's backward in training (a loop
+  of 64 steps, where the plain version's runs over all of T).
 * the CUDA kernel `csrc/rglru_scan.cu` for `sm_90a` (u bf16 or f32, read
   in its own type), two routes chosen in its C entry point from the
   shapes: "chunked" (T > 64: every prefill) scans chunks of 64 steps in
@@ -32,8 +33,11 @@ and returns h only, the model needs both ends of the state.
 `rglru_scan` owns the choice: CUDA tensors launch the kernel (and count it
 in `rglru_scan.launches`, and the route it took in `rglru_scan.routes`)
 or raise, CPU tensors run the plain version; `use_kernel="plain"` forces
-the plain version anywhere.  The Pallas kernel's `chunk`/`block_w` are
-TPU tiling knobs with no counterpart here.
+the plain version anywhere.  Where autograd records, the kernel's backward
+is `rglru_scan_chunked_plain`'s vector-Jacobian product
+(`common.KernelVjp`, counted in `rglru_scan.backward_recomputes`); the
+gradient of u comes back in u's dtype.  The Pallas kernel's
+`chunk`/`block_w` are TPU tiling knobs with no counterpart here.
 """
 from __future__ import annotations
 
@@ -184,6 +188,17 @@ def rglru_scan(u, w_r, b_r, w_i, b_i, lam, h0=None, *, use_kernel=None):
     raises on CPU."""
     if not common.resolve(use_kernel, u.device) or u.device.type != "cuda":
         return rglru_scan_plain(u, w_r, b_r, w_i, b_i, lam, h0)
+    return _with_plain_vjp(u, w_r, b_r, w_i, b_i, lam, h0)
+
+
+def _with_plain_vjp(u, w_r, b_r, w_i, b_i, lam, h0):
+    """The kernel, with `rglru_scan_chunked_plain`'s gradient."""
+    return common.with_plain_vjp(rglru_scan, _kernel,
+                                 rglru_scan_chunked_plain, u, w_r, b_r, w_i,
+                                 b_i, lam, h0)
+
+
+def _kernel(u, w_r, b_r, w_i, b_i, lam, h0):
     out, route = _launch(u, (w_r, b_r, w_i, b_i, lam), h0)
     rglru_scan.launches += 1
     rglru_scan.routes[route] += 1
@@ -191,4 +206,5 @@ def rglru_scan(u, w_r, b_r, w_i, b_i, lam, h0=None, *, use_kernel=None):
 
 
 rglru_scan.launches = 0
+rglru_scan.backward_recomputes = 0
 rglru_scan.routes = dict.fromkeys(ROUTES, 0)

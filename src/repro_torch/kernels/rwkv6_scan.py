@@ -18,7 +18,9 @@ returns o only, the model needs both ends of the state.
 * `rwkv6_scan_chunked_plain`: the chunked route's algebra in plain
   PyTorch (sub-chunks of L = 16 tokens in state-passing form, the same
   reference points, decay factors multiplied up from exp(logw) and the
-  zero-filled tail), for the CPU tests; never on the model's path.
+  zero-filled tail), for the CPU tests, and the body whose
+  vector-Jacobian product is the kernel's backward in training (a loop
+  over T / 16 sub-chunks, where the plain version's runs over all of T).
 * the CUDA kernel `csrc/rwkv6_scan.cu` for `sm_90a` (r/k/v bf16 or f32,
   logw f32; N 16, 32 or 64), two routes chosen in its C entry point from
   the shapes and the operands' alignment: "chunked" (T >= 32,
@@ -36,8 +38,12 @@ returns o only, the model needs both ends of the state.
 `rwkv6_scan` owns the choice: CUDA tensors launch the kernel (and count it
 in `rwkv6_scan.launches`, and the route it took in `rwkv6_scan.routes`,
 e.g. `{"chunked": 16, "step": 128}`) or raise, CPU tensors run the plain
-version; `use_kernel="plain"` forces the plain version anywhere.  The
-Pallas kernel's `chunk` is a TPU tiling knob with no counterpart here.
+version; `use_kernel="plain"` forces the plain version anywhere.  Where
+autograd records, the kernel's backward is `rwkv6_scan_chunked_plain`'s
+vector-Jacobian product (`common.KernelVjp`, counted in
+`rwkv6_scan.backward_recomputes`); the gradients of r, k and v come back
+in their dtype.  The Pallas kernel's `chunk` is a TPU tiling knob with no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -205,6 +211,17 @@ def rwkv6_scan(r, k, v, logw, u, s0=None, *, use_kernel=None):
     raises on CPU."""
     if not common.resolve(use_kernel, r.device) or r.device.type != "cuda":
         return rwkv6_scan_plain(r, k, v, logw, u, s0)
+    return _with_plain_vjp(r, k, v, logw, u, s0)
+
+
+def _with_plain_vjp(r, k, v, logw, u, s0):
+    """The kernel, with `rwkv6_scan_chunked_plain`'s gradient."""
+    return common.with_plain_vjp(rwkv6_scan, _kernel,
+                                 rwkv6_scan_chunked_plain, r, k, v, logw, u,
+                                 s0)
+
+
+def _kernel(r, k, v, logw, u, s0):
     out, route = _launch(r, k, v, logw, u, s0)
     rwkv6_scan.launches += 1
     rwkv6_scan.routes[route] += 1
@@ -212,4 +229,5 @@ def rwkv6_scan(r, k, v, logw, u, s0=None, *, use_kernel=None):
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.backward_recomputes = 0
 rwkv6_scan.routes = dict.fromkeys(ROUTES, 0)

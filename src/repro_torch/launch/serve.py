@@ -75,6 +75,7 @@ def slot_tenants(cfg, rng: np.random.Generator) -> list[Tenant]:
     return tenants
 
 
+@torch.no_grad()
 def serve(arch: str, *, smoke: bool = False, device="cuda",
           num_requests: int = 12, batch: int = 4, max_len: int = 64,
           new_tokens: int = 8, prompt_len: tuple[int, int] = (4, 4),

@@ -26,6 +26,19 @@ Three execution modes share the block code:
 Each MoE block's per-layer `expert_load` comes back in `aux`, stacked over
 the segment's layers as (n, E) int32, in the JAX package's layout.
 
+Training: `loss_fn` is the JAX package's next-token cross entropy (the
+vocab loss chunked by `cfg.loss_chunk`, each chunk recomputed in the
+backward).  `cfg.remat` checkpoints each layer of a segment in train
+mode, the JAX scan body: "full" recomputes the layer in the backward,
+"dots" keeps the outputs of the weight products (`aten.mm`) and
+recomputes the rest (the counterpart of
+`checkpoint_dots_with_no_batch_dims`: the batched attention products are
+recomputed), "none" keeps everything.  A segment's stacked leaves are cut
+into their layers by one `unbind` a leaf, so that a leaf's gradient is
+stacked once rather than scattered into a zero tensor of the whole stack
+for each layer.  On CUDA tensors the kernels' outputs take their plain
+versions' gradients (`kernels.common.KernelVjp`).
+
 `use_kernel` (None/"auto", "kernel", "plain"; carried in `Ctx`) reaches
 the kernels, whose wrappers own the device choice: the flash kernel for
 prefill (global, and windowed for "lattn": one call over the whole
@@ -39,16 +52,22 @@ head-TP) has no counterpart on one card: `shd` must be None.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache, layers, moe, rglru, rwkv6
+from repro_torch.tree_util import tree_map
 
 __all__ = ["segments", "init_params", "init_cache", "Ctx", "apply_block",
-           "run_segments", "forward", "prefill", "decode_step", "DecoderLM"]
+           "run_segments", "forward", "loss_fn", "prefill", "decode_step",
+           "DecoderLM"]
 
 def _no_shd(shd) -> None:
     if shd is not None:
@@ -85,14 +104,6 @@ def segments(cfg) -> list[tuple[tuple[str, ...], int]]:
 # ---------------------------------------------------------------------------
 # pytrees of tensors (nested dicts and lists)
 # ---------------------------------------------------------------------------
-
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
 
 def _tree_stack(trees):
     first = trees[0]
@@ -327,25 +338,73 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The n layers' views of a tree stacked over layers, by one `unbind`
+    a leaf."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        per = [_unstack(v, n) for v in tree]
+        return [[p[i] for p in per] for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat="dots": keep the weight products, recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg) -> dict | None:
+    """`checkpoint`'s keyword arguments for `cfg.remat`, or None for no
+    checkpoint."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "full":
+        return {}
+    if cfg.remat == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"remat {cfg.remat!r}: expected full, dots or none")
+
+
+def _train_layer(types, p_list, x, ctx):
+    """One layer of a segment in train mode (the JAX package's scan
+    body): x and each block's aux."""
+    auxes = []
+    for j, bt in enumerate(types):
+        x, _, aux = apply_block(bt, p_list[j], x, None, ctx)
+        auxes.append(aux)
+    return x, auxes
+
+
 def run_segments(params, x, caches, ctx):
     """caches: None (train/prefill) or list matching segments (decode,
     written in place).  Returns (x, caches, aux): prefill's caches are
     stacked over layers, decode's are the caches given; aux holds, per
     segment and block, `{"expert_load": (n, E) int32}` for a moe block
-    and `{}` for the others."""
+    and `{}` for the others.  In train mode each layer runs under
+    `cfg.remat`'s checkpoint."""
     cfg = ctx.cfg
+    remat = _remat(cfg) if ctx.mode == "train" else None
     all_caches, all_aux = [], []
     for si, (types, n) in enumerate(segments(cfg)):
-        seg_params = params["segments"][si]
+        seg_params = _unstack(params["segments"][si], n)
         seg_cache = caches[si] if caches is not None else None
         per_layer, per_aux = [], []
         for i in range(n):
+            if remat is not None:
+                x, auxes = checkpoint(_train_layer, types, seg_params[i], x,
+                                      ctx, use_reentrant=False, **remat)
+                per_aux.append(auxes)
+                continue
             ncs, auxes = [], []
             for j, bt in enumerate(types):
                 c = _layer(seg_cache[j], i) if seg_cache is not None \
                     else None
-                x, nc, aux = apply_block(bt, _layer(seg_params[j], i), x, c,
-                                         ctx)
+                x, nc, aux = apply_block(bt, seg_params[i][j], x, c, ctx)
                 ncs.append(nc)
                 auxes.append(aux)
             per_layer.append(ncs)
@@ -403,6 +462,47 @@ def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
     return x, caches, aux, ctx
 
 
+def loss_fn(cfg, params, batch, shd=None, use_kernel=None):
+    """Next-token cross entropy (mean over the B*(T-1) predicted tokens);
+    returns (loss, aux).  The targets are the inputs shifted by padding
+    (T stays divisible by the chunk), the last position weighted 0.  When
+    `cfg.loss_chunk` divides T, the vocab loss runs chunk by chunk, each
+    under `checkpoint`, so that no (B, T, V) f32 logits are kept for the
+    backward.  A MoE layer's `lb_loss` in aux would add 0.01 times its
+    mean, as in the JAX package; neither package's MoE returns one (aux
+    holds `expert_load` only)."""
+    x, _, aux, ctx = forward(cfg, params, batch, shd, use_kernel=use_kernel)
+    batch = _on_device(params, batch)
+    tgt = batch["tokens"] if cfg.embed_inputs else batch["labels"]
+    targets = F.pad(tgt[:, 1:].long(), (0, 1))
+    weights = torch.ones(targets.shape, dtype=torch.float32,
+                         device=x.device)
+    weights[:, -1] = 0.0
+
+    def xent(xc, tc, wc):
+        logits = _logits(cfg, params, xc, ctx).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return ((logz - gold) * wc).sum()
+
+    b, t = targets.shape
+    chunk = cfg.loss_chunk
+    if chunk and t % chunk == 0:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, t, chunk):
+            part = slice(c0, c0 + chunk)
+            total = total + checkpoint(xent, x[:, part], targets[:, part],
+                                       weights[:, part], use_reentrant=False)
+    else:
+        total = xent(x, targets, weights)
+    loss = total / (b * (t - 1))
+    lb = [a.get("lb_loss") for seg in aux for a in seg
+          if isinstance(a, dict) and a.get("lb_loss") is not None]
+    if lb:
+        loss = loss + 0.01 * sum(torch.mean(v) for v in lb)
+    return loss, aux
+
+
 def prefill(cfg, params, batch, shd=None, use_kernel=None):
     """Returns (last-token logits (B,1,V), decode-ready cache, aux)."""
     x, caches, aux, ctx = forward(cfg, params, batch, shd, mode="prefill",
@@ -432,8 +532,11 @@ def decode_step(cfg, params, batch, cache, shd=None, use_kernel=None):
 # ---------------------------------------------------------------------------
 
 class _Tree(nn.Module):
-    """A nested dict/list of tensors held as parameters (frozen), with
-    sub-dicts and lists as submodules named by key or index."""
+    """A nested dict/list of tensors held as trainable parameters, with
+    sub-dicts and lists as submodules named by key or index.  `tree()`
+    gives the parameters themselves back, so a loss taken through the
+    functional entry points reaches them; the serving paths run under
+    `torch.no_grad()`."""
 
     def __init__(self, tree):
         super().__init__()
@@ -444,8 +547,7 @@ class _Tree(nn.Module):
             name = str(k)
             self._keys.append(k)
             if isinstance(v, torch.Tensor):
-                self.register_parameter(
-                    name, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(v))
             else:
                 self.add_module(name, _Tree(v))
 
@@ -453,7 +555,7 @@ class _Tree(nn.Module):
         vals = []
         for k in self._keys:
             v = getattr(self, str(k))
-            vals.append(v.tree() if isinstance(v, _Tree) else v.data)
+            vals.append(v.tree() if isinstance(v, _Tree) else v)
         if self._kind == "list":
             return vals
         return dict(zip(self._keys, vals))
@@ -462,8 +564,13 @@ class _Tree(nn.Module):
 class DecoderLM(nn.Module):
     """The decoder as an `nn.Module`: `params` (the functional tree, e.g.
     from `init_params` or `params_from_numpy`) held as parameters with
-    their JAX nesting as names (`segments.0.0.attn.wq`, ...).  `params()`
-    gives the tree back for the functional entry points."""
+    their JAX nesting as names (`segments.0.0.attn.wq`, ...), trainable.
+    `params()` gives the tree of parameters back for the functional entry
+    points (`loss_fn` among them); `prefill` and `decode_step` serve on
+    the parameters detached, under `torch.no_grad()` (a tensor that
+    requires grad can steer an op to another kernel even without grad
+    mode, so the detached tensors give what the functional entry points
+    give on the tree the module was built from)."""
 
     def __init__(self, cfg, params):
         super().__init__()
@@ -479,9 +586,15 @@ class DecoderLM(nn.Module):
                                use_kernel=use_kernel)
         return _logits(self.cfg, self.params(), x, ctx)
 
-    def prefill(self, batch, use_kernel=None):
-        return prefill(self.cfg, self.params(), batch, use_kernel=use_kernel)
+    def _detached(self):
+        return tree_map(lambda p: p.detach(), self.params())
 
+    @torch.no_grad()
+    def prefill(self, batch, use_kernel=None):
+        return prefill(self.cfg, self._detached(), batch,
+                       use_kernel=use_kernel)
+
+    @torch.no_grad()
     def decode_step(self, batch, cache, use_kernel=None):
-        return decode_step(self.cfg, self.params(), batch, cache,
+        return decode_step(self.cfg, self._detached(), batch, cache,
                            use_kernel=use_kernel)

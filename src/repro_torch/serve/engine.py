@@ -62,11 +62,13 @@ def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
     writes the (1, T) prefill cache into the shared fixed-width decode
     cache in place; the decode callback is one `decode_step` over the
     whole batch, and the next token is the first argmax of its logits.
-    `params` live on `device`."""
+    `params` live on `device`; both callbacks run under
+    `torch.no_grad()`."""
     transformer._no_shd(shd)
     dev = resolve_device(device)
     cache = transformer.init_cache(cfg, batch_size, max_len, dev)
 
+    @torch.no_grad()
     def prefill_row(row, tokens):
         t0 = len(tokens)
         _, row_cache, _ = transformer.prefill(
@@ -85,6 +87,7 @@ def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
                     else:
                         d[:, row] = s[:, 0]
 
+    @torch.no_grad()
     def decode(tokens, positions):
         logits, _, _ = transformer.decode_step(
             cfg, params, {"tokens": tokens, "positions": positions}, cache,
@@ -186,6 +189,7 @@ class SlotServeEngine:
                 self.stats["accesses"] += int(stats.accessed)
                 self.stats["fill_seconds"] += float(stats.fill_seconds)
 
+    @torch.no_grad()
     def _decode_once(self, tenant: Tenant):
         b = tenant.tokens.shape[0]
         pos = min(tenant.position, self.max_len - 1)

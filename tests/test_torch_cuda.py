@@ -19,7 +19,12 @@ RecurrentGemma's head dim 256 with 16 query heads over 1; and one online
 serve of `repro_torch.sched` under a fault storm on the card against the
 same serve on the CPU; the `window_kernel` bench with the real kernel,
 two `perf_sweep` sections at a small size, and `model_serve_study`'s P=2
-case against the CPU's on the same mixes.  Marked `cuda`;
+case against the CPU's on the same mixes; and training: the four kernels
+on a training path take their plain versions' gradients (1e-4 relative
+L2), the loss and every gradient through a narrow model of each family
+under each remat mode equal the plain route's, each kernel launched and
+recomputed as counted, and decode attention and `moe_gmm_skip` refuse
+autograd.  Marked `cuda`;
 every test skips without a CUDA device.  On a machine with a card:
 `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
 """
@@ -943,3 +948,137 @@ def test_model_serve_study_p2_on_card_matches_cpu(dev):
     on_cpu = mss.study(2, mss.FLEET, ContentionModel(mss.CFG, device="cpu"))
     assert on_card == on_cpu
     assert on_card["placed_worst"] <= on_card["random_worst_mean"]
+
+
+# ---------------------------------------------------------------------------
+# training: each kernel's forward with its plain version's gradient
+# ---------------------------------------------------------------------------
+
+# narrow configs at head dims the kernels take: two layers, and
+# recurrentgemma's one (rec, rec, lattn) segment
+TRAIN_ARCHS = {"granite-3-2b": dict(head_dim=64),
+               "arctic-480b": dict(head_dim=64),
+               "recurrentgemma-9b": dict(head_dim=64),
+               "rwkv6-7b": {}}
+# the kernels' f32 forward sits within 2e-5 (attention, grouped FFN,
+# RG-LRU) of the plain versions, the WKV kernel's within 5e-4 (25x: its
+# products run on bf16 hi + lo splits), and every later layer's gradient
+# is taken at those activations (rwkv6 without remat read 2.2e-3 on an
+# H100)
+TRAIN_REL = {"granite-3-2b": 1e-3, "arctic-480b": 1e-3,
+             "recurrentgemma-9b": 1e-3, "rwkv6-7b": 1e-2}
+TRAIN_KERNELS = {"flash_attention": fa.flash_attention,
+                 "moe_gmm": gmm.moe_gmm, "rglru_scan": rgs.rglru_scan,
+                 "rwkv6_scan": rws.rwkv6_scan}
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() /
+                 b.float().norm().clamp_min(1e-30))
+
+
+def _loss_and_grads(cfg, params, tokens, mode):
+    from repro_torch.tree_util import leaves
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    from repro_torch.tree_util import unflatten
+    loss, _ = transformer.loss_fn(cfg, unflatten(params, flat),
+                                  {"tokens": tokens}, use_kernel=mode)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("arch", list(TRAIN_ARCHS))
+def test_training_grads_on_card_equal_the_plain_route(dev, arch, remat):
+    """The loss and every parameter's gradient through the kernels equal
+    the plain route's (relative L2 within the arch's tolerance); each
+    kernel of the path launches once a forward (twice under remat: the
+    recompute runs the forward again) and takes one plain recompute a
+    backward; decode attention and moe_gmm_skip never launch."""
+    cb.load_all()
+    cfg = dataclasses.replace(cb.get_config(arch).smoke(), remat=remat,
+                              loss_chunk=64, **TRAIN_ARCHS[arch])
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)).astype(np.int32), device=dev)
+    for fn in (*TRAIN_KERNELS.values(), da.decode_attention,
+               gmm.moe_gmm_skip):
+        fn.launches = 0
+        fn.backward_recomputes = 0
+    got = _loss_and_grads(cfg, params, tokens, "auto")
+    torch.cuda.synchronize()
+    counts = {n: (fn.launches, fn.backward_recomputes)
+              for n, fn in TRAIN_KERNELS.items()}
+    assert da.decode_attention.launches == gmm.moe_gmm_skip.launches == 0
+    want = _loss_and_grads(cfg, params, tokens, "plain")
+    assert {n: fn.launches for n, fn in TRAIN_KERNELS.items()} == \
+        {n: c[0] for n, c in counts.items()}
+    used = {n: c for n, c in counts.items() if c[1]}
+    assert used, counts
+    for launches, recomputes in used.values():
+        assert launches == recomputes * (1 if remat == "none" else 2)
+    tol = TRAIN_REL[arch]
+    assert _rel_l2(got[0], want[0]) < tol
+    for g, w in zip(got[1], want[1], strict=True):
+        assert _rel_l2(g, w) < tol
+
+
+def test_kernels_off_the_training_path_raise_under_grad_on_card(dev):
+    q = torch.randn((2, 4, 64), device=dev, requires_grad=True)
+    kv = torch.randn((2, 16, 2, 64), device=dev)
+    kv_len = torch.full((2,), 16, dtype=torch.int32, device=dev)
+    before = da.decode_attention.launches
+    with pytest.raises(RuntimeError, match="use_kernel='plain'"):
+        da.decode_attention(q, kv, kv, kv_len)
+    with torch.no_grad():
+        da.decode_attention(q, kv, kv, kv_len)
+    assert da.decode_attention.launches == before + 1
+    x = torch.randn((2, 8, 16), device=dev, requires_grad=True)
+    w, wo = torch.randn((2, 16, 32), device=dev), torch.randn((2, 32, 16),
+                                                             device=dev)
+    counts = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="moe_gmm_skip"):
+        gmm.moe_gmm_skip(x, w, w, wo, counts)
+    # the plain route differentiates
+    out = gmm.moe_gmm_skip(x, w, w, wo, counts, use_kernel="plain")
+    out.sum().backward()
+    assert x.grad is not None
+
+
+def _vjp_cases(dev, gen):
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    yield "flash", fa.flash_attention, (r(2, 300, 8, 128), r(2, 300, 2, 128),
+                                        r(2, 300, 2, 128)), {"window": 0}
+    yield "flash window", fa.flash_attention, (
+        r(1, 257, 8, 64), r(1, 257, 2, 64), r(1, 257, 2, 64)), {"window": 100}
+    yield "moe_gmm", gmm.moe_gmm, (r(4, 64, 64) * 0.5, r(4, 64, 128) * 0.1,
+                                   r(4, 64, 128) * 0.1,
+                                   r(4, 128, 64) * 0.1), {}
+    yield "rglru", rgs.rglru_scan, (
+        r(2, 200, 256), *(r(256) * 0.1 for _ in range(4)),
+        torch.linspace(2.0, 6.0, 256, device=dev), r(2, 256)), {}
+    yield "rwkv6", rws.rwkv6_scan, (
+        r(1, 128, 2, 64), r(1, 128, 2, 64), r(1, 128, 2, 64),
+        -torch.exp(r(1, 128, 2, 64) * 0.5), r(2, 64) * 0.1, None), {}
+
+
+def test_kernel_functions_take_the_plain_gradient_on_card(dev):
+    """Each of the four Functions on the card: a fixed random cotangent's
+    gradients of every input through the kernel route equal the plain
+    route's within 1e-4 relative L2 (f32; the backward of both is a plain
+    body, the scans' in chunked summation order)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for what, fn, args, kw in _vjp_cases(dev, gen):
+        grads = {}
+        for mode in ("auto", "plain"):
+            leaves = [None if a is None else a.detach().requires_grad_(True)
+                      for a in args]
+            outs = fn(*leaves, use_kernel=mode, **kw)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            cot = torch.Generator(device=dev).manual_seed(5)
+            loss = sum((o * torch.randn(o.shape, generator=cot,
+                                        device=dev)).sum() for o in outs)
+            grads[mode] = torch.autograd.grad(
+                loss, [a for a in leaves if a is not None])
+        for g, w in zip(grads["auto"], grads["plain"], strict=True):
+            assert _rel_l2(g, w) < 1e-4, what

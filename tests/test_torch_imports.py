@@ -69,7 +69,10 @@ def test_every_port_module_imports_without_jax():
               "serve.engine", "launch.serve", "bench.bench_expert_slots",
               "workloads", "workloads.opcounts", "workloads.lowering",
               "bench.model_serve_study", "bench.perf_sweep",
-              "bench.window_kernel"):
+              "bench.window_kernel", "tree_util", "data.pipeline",
+              "optim.adamw", "optim.compress", "train.step",
+              "checkpoint.ckpt", "runtime.fault", "launch.train",
+              "examples.train_lm", "examples.quickstart"):
         assert f"repro_torch.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
