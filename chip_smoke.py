@@ -151,14 +151,31 @@ printed; `train_restart` runs the supervised restart at full width cut
 to 2 layers (8 steps, a checkpoint every 4, a failure before step 6):
 one restart, the final loss the clean run's within rel 1e-4.
 
+The substrate slice (`repro_torch.analysis.cost`, `launch.dryrun`,
+`launch.perf`, the bench runner, `bench.perf_gate`, the examples), each
+path's kernel launches counted from 0: `dryrun_sweep` counts all 32
+(arch x shape) cells through `launch.dryrun` on the meta device in a host
+worker (started once the window kernel's plain results are in) and
+prints one line a cell and the roofline table; `dryrun_vs_card`, the slice's gate, counts one training
+step of granite-3-2b at train_granite's shape on the card with the same
+counter and holds its FLOPs by dtype class, bytes, ops and kernel
+charges equal to the meta estimate, then prints the estimate against
+train_granite's median step, that step's TFLOP/s and share of the bf16
+peak (counted, and by 6 N T) and the one-card budget against its peak
+memory; `examples` runs the port's seven examples on the card (the smoke
+configs at head dim 64), paper_repro's anchors held; `bench_runner` runs
+`python -m repro_torch.bench --list` and two `--only` runs merged into
+one record with the card's provenance, and `perf_gate` over it (the
+record against itself passes, a copy with one entry 2x slower fails).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
 the `kernels` line (all eight kernels: launches on their slice's main
 path, the window rows' with the sched, model_serve_study and perf_sweep
 phases' added and split in `launches_by_slice`; times, bound, error; the
 four training kernels' `train_launches` and `train_backward_recomputes`
-on granite's training run) and
-`{"ok": true, "device": ...}`.
+on granite's training run; the substrate slice's launches in
+`launches_by_slice`) and `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the port's sources beside it, the script exits
 non-zero before it prints any result.
@@ -207,7 +224,7 @@ EXPECTED_ROWS = {
     # model_serve_study on the port's own counted mixes (the port on the
     # CPU, held by tests/test_torch_workloads.py): the JAX package's rows
     # come from XLA-counted mixes and are not expected here
-    "model_serve_study_torch": "e29e2a34282d0217c5b9a4adcb3331ee3cddd14e",
+    "model_serve_study_torch": "62c96072e37b64f90888c6133f08610a9e7f2ce0",
 }
 ANCHORS = {
     "fig4": "minver_speedup_F=27.50 (paper 27.5)",
@@ -551,6 +568,9 @@ INT32_LANES_PER_SM = 64
 H100_SXM_MAX_SM_MHZ = 1_980.0
 # dense bf16 tensor-core rate of one H100 SXM (NVIDIA's data sheet)
 BF16_FLOPS_PER_S = 989e12
+# f32 rate of its CUDA cores (the on-chip guide's table): the scans'
+# operations (their modules' `cost`) run there
+F32_FLOPS_PER_S = 67e12
 
 
 def int32_ops_per_s() -> tuple[float, str]:
@@ -1132,19 +1152,19 @@ def phase_benches(dev) -> None:
          finding=rows[-1][2:], rows_match_jax=True)
 
 
-def _bound_ms(stream_elems: int, other_bytes: int, accesses: int,
-              num_tags: int, int32_rate: float) -> tuple[float, str]:
-    """Least time for the window pass, in ms, and what bounds it.  Bytes:
-    each tag/cost element the run touches read once (at most the whole
-    streams, at most one per committed access) plus the other operands
-    and the outputs, over the HBM rate.  Operations: 2*num_tags + 8 int32
-    operations per committed access (the stack-distance compares and the
-    per-tag last-position update, plus the cost, scan, expiry and counter
-    arithmetic) over the card's int32 rate.  The larger of the two."""
-    t_bytes = (8 * min(stream_elems, accesses) + other_bytes) / \
-        HBM_BYTES_PER_S
-    t_ops = accesses * (2 * num_tags + 8) / int32_rate
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+def kernel_bound(work: dict, int32_rate: float | None = None
+                 ) -> tuple[float, str]:
+    """Least time in ms of a kernel's count (its module's `cost`, the one
+    the cost counter charges), and what bounds it: its operations at the
+    card's peak rate for their class (bf16 tensor cores, f32 CUDA cores,
+    `int32_rate` or the data sheet's int32 issue rate), or its bytes at
+    the HBM rate, whichever is longer."""
+    from repro_torch.analysis import cost
+    rates = {"bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S,
+             "int": int32_rate or cost.H100_PEAK["int"]}
+    t_ops = sum(n / rates[cls] for cls, n in work["flops"].items())
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
@@ -1285,12 +1305,9 @@ def phase_timing(dev, errs: dict, splits: dict, parent=None) -> dict:
                            else 3)
         num_tags, steps = kw["num_tags"], kw["total_steps"]
         ptags = args[0]
-        if name == "window_grid":
-            other = 4 * cells * (4 * ptags.shape[1] + 1)
-        else:   # 2 tag vectors, 5 program vectors, 4 scalars; the seed
-            other = 4 * 2 * (num_tags + 5 * 4 + 4)
-        bound, by = _bound_ms(ptags.numel(), other, cells * steps, num_tags,
-                              int32_rate)
+        bound, by = kernel_bound(wd.cost(
+            ptags.numel(), cells, steps, num_tags, ptags.shape[-2],
+            cell=name == "window_cell"), int32_rate)
         out[key] = dict(**times, plain_ms=plain_ms, bound_ms=bound,
                         bound_by=by, route="bitset", cells=cells,
                         window=kw["window"], steps=steps,
@@ -2303,13 +2320,6 @@ def _sdpa(q, k, v, **kw):
         enable_gqa=True, **kw)
 
 
-def _visible_pairs(t: int, window: int) -> int:
-    """(q, k) pairs a causal prompt of t tokens attends, within `window`."""
-    if not window or window >= t:
-        return t * (t + 1) // 2
-    return window * (window + 1) // 2 + (t - window) * window
-
-
 def _time_flash(q, k, v, window: int, reps: int, plain: bool) -> dict:
     """Times of the flash kernel at one prompt: the CUDA-event mean of
     back-to-back wrapper calls (`ms`), its device time (`device_ms`),
@@ -2327,9 +2337,8 @@ def _time_flash(q, k, v, window: int, reps: int, plain: bool) -> dict:
     else:
         lib = lambda: _sdpa(q, k, v, is_causal=True)
     kernel = lambda: fa.flash_attention(q, k, v, window=window)
-    flops = 4 * h * d * _visible_pairs(t, window)
-    nbytes = 2 * t * (2 * h + 2 * kh) * d
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    work = fa.cost(1, t, t, h, kh, d, q.dtype, window=window)
+    bound, by = kernel_bound(work)
     dev_ms, kept = device_ms(kernel, reps)
     lib_dev_ms, lib_kept = device_ms(lib, reps)
     return dict(
@@ -2337,10 +2346,8 @@ def _time_flash(q, k, v, window: int, reps: int, plain: bool) -> dict:
         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=window), 3) if plain else None,
         library_ms=cuda_ms(lib, reps), library_device_ms=lib_dev_ms,
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        flops=flops, bytes=nbytes,
-        profiler_records_kept=[kept, lib_kept])
+        bound_ms=bound, bound_by=by, flops=sum(work["flops"].values()),
+        bytes=work["bytes"], profiler_records_kept=[kept, lib_kept])
 
 
 def _time_decode(q, kc, vc, kv_len, reps: int) -> dict:
@@ -2363,10 +2370,8 @@ def _time_decode(q, kc, vc, kv_len, reps: int) -> dict:
 
     kernel = cycled(lambda kk, vv: da.decode_attention(q, kk, vv, kv_len))
     lib = cycled(lambda kk, vv: _sdpa(q[:, None], kk, vv, attn_mask=mask))
-    n_len = int(kv_len.sum())
-    nbytes = 2 * (2 * n_len * kh * d + 2 * b * h * d) + 4 * b
-    flops = 4 * n_len * h * d
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    work = da.cost(b, h, kh, d, int(kv_len.sum()), q.dtype)
+    bound, by = kernel_bound(work)
     dev_ms, kept = device_ms(kernel, reps)
     lib_dev_ms, lib_kept = device_ms(lib, reps)
     return dict(
@@ -2374,9 +2379,8 @@ def _time_decode(q, kc, vc, kv_len, reps: int) -> dict:
         plain_ms=cuda_ms(cycled(lambda kk, vv: da.decode_attention_plain(
             q, kk, vv, kv_len)), max(2, reps // 10)),
         library_ms=cuda_ms(lib, reps), library_device_ms=lib_dev_ms,
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        splits=list(da.split_plan(b, kh, s)), flops=flops, bytes=nbytes,
+        bound_ms=bound, bound_by=by, splits=list(da.split_plan(b, kh, s)),
+        flops=sum(work["flops"].values()), bytes=work["bytes"],
         profiler_records_kept=[kept, lib_kept])
 
 
@@ -2771,18 +2775,16 @@ def _bmm_ffn(x, wg, wi, wo):
     return torch.bmm(h, wo)
 
 
-def _gmm_bound(live: int, e: int, c: int, d: int, f: int, elem: int,
+def _gmm_bound(live: int, e: int, c: int, d: int, f: int, dtype,
                counts: bool) -> tuple[float, str, int, int]:
     """Least time of the grouped FFN, in ms, what bounds it, its flops
-    and bytes: the live experts' weights and rows read once, the whole
-    output written once (and the counts read), at the HBM rate; 6 C D F
-    flops a live expert at the bf16 tensor-core rate."""
-    nbytes = elem * (3 * live * d * f + live * c * d + e * c * d) + \
-        4 * e * counts
-    flops = 6 * live * c * d * f
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    and bytes (`moe_gmm.cost`): the live experts' weights and rows read
+    once, the whole output written once (and the counts read), at the
+    HBM rate; 6 C D F flops a live expert at the bf16 tensor-core rate."""
+    from repro_torch.kernels import moe_gmm as gmm
+    work = gmm.cost(live, e, c, d, f, dtype, counts=counts)
+    return (*kernel_bound(work), sum(work["flops"].values()),
+            work["bytes"])
 
 
 # moe_gmm's capacities on arctic's path: prompts of 100-1,500 tokens give
@@ -2860,7 +2862,6 @@ def phase_time_moe(dev, errs: dict, layer0) -> dict:
     wg, wi, wo = layer0
     e, d, f = wg.shape
     dt = wg.dtype
-    elem = wg.element_size()
     gen = torch.Generator(device=dev).manual_seed(5)
     out, accuracy, caps, lives = {}, {}, {}, {}
 
@@ -2880,7 +2881,7 @@ def phase_time_moe(dev, errs: dict, layer0) -> dict:
         accuracy[f"moe_gmm C={c}"] = {
             "route": route, "max_abs_err": err,
             "differing_share": float((got != want).float().mean())}
-        bound, by, flops, nbytes = _gmm_bound(e, e, c, d, f, elem, False)
+        bound, by, flops, nbytes = _gmm_bound(e, e, c, d, f, dt, False)
         caps[c] = dict(
             _time_gmm(lambda: gmm.moe_gmm(x, wg, wi, wo),
                       lambda: _bmm_ffn(x, wg, wi, wo), 5,
@@ -2906,7 +2907,7 @@ def phase_time_moe(dev, errs: dict, layer0) -> dict:
         gathered = [t[ids] for t in (x, wg, wi, wo)]
         n_live = int(ids.numel())
         bound, by, flops, nbytes = _gmm_bound(n_live, e, DECODE_C, d, f,
-                                              elem, True)
+                                              dt, True)
         lives[live] = dict(
             _time_gmm(lambda: gmm.moe_gmm_skip(x, wg, wi, wo, counts),
                       lambda: _bmm_ffn(*gathered), 20, split=True),
@@ -3033,13 +3034,8 @@ REC_SERVE = {
              prompt_len=(100, 2040)),
     RWKV: dict(num_requests=16, batch=8, max_len=2048, new_tokens=64,
                prompt_len=(100, 1500))}
-# f32 operations a scan does: ~22 for an RG-LRU element (two sigmoids,
-# softplus-scaled decay, exp, sqrt and the FMA), 4 N^2 for a WKV token
-# and head; peak f32 rate of the CUDA cores (the on-chip guide's table)
-RGLRU_OPS_PER_ELEM = 22
 # recurrentgemma's prompts for the flash timing: one window, two windows
 FLASH_PROMPTS_D256 = (1024, 4096)
-F32_FLOPS_PER_S = 67e12
 # bytes of inputs a scan timing cycles through: three times the 50 MB L2
 SCAN_ROTATE_BYTES = 150_000_000
 
@@ -3350,14 +3346,6 @@ def phase_recurrent_serve(dev, arch: str) -> dict:
     return launches, routes
 
 
-def _scan_bound(flops: int, nbytes: int) -> tuple[float, str]:
-    """Least time in ms (f32 operations on the CUDA cores, or bytes at the
-    HBM rate, whichever is longer) and which bounds it."""
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes"
-
-
 def _cycled(fn, sets: list):
     """A call of fn on the next of `sets` (argument tuples), round and
     round."""
@@ -3399,16 +3387,14 @@ def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
         for where, case in shapes.items():
             if name == "rglru_scan":
                 b, t, w, _ = case
-                flops = RGLRU_OPS_PER_ELEM * b * t * w
+                work = rgs.cost(b, t, w, bf16, True)
                 in_bytes = 2 * b * t * w + 5 * 4 * w + 4 * b * w
-                nbytes = in_bytes + 4 * b * t * w + 4 * b * w
                 shape = f"B={b} T={t} W={w}, u bf16, h0 given"
             else:
                 b, t, h, n, _ = case
-                flops = 4 * n * n * b * t * h
+                work = rws.cost(b, t, h, n, bf16, True)
                 in_bytes = (3 * 2 + 4) * b * t * h * n + 4 * h * n + \
                     4 * b * h * n * n
-                nbytes = in_bytes + 4 * b * t * h * n + 4 * b * h * n * n
                 shape = f"B={b} T={t} H={h} N={n}, r/k/v bf16, S0 given"
             sets = [_scan_inputs(name, case, bf16, gen, dev) for _ in range(
                 max(2, -(-SCAN_ROTATE_BYTES // in_bytes)))]
@@ -3422,10 +3408,11 @@ def phase_time_recurrent(dev, errs: dict, attn_errs: dict) -> dict:
             dev_ms, kept = device_ms(fn, reps)
             by_kernel = kernel_breakdown(fn, reps)
             plain_ms = cuda_ms(_cycled(plain, sets), 2)
-            bound, by = _scan_bound(flops, nbytes)
+            bound, by = kernel_bound(work)
             out[f"{name} {where}"] = dict(
                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                bound_ms=bound, bound_by=by,
+                flops=sum(work["flops"].values()), bytes=work["bytes"],
                 share_of_bound=bound / dev_ms if dev_ms else None,
                 shape=shape, route=route, input_sets=len(sets),
                 profiler_records_kept=kept, device_ms_by_kernel=by_kernel)
@@ -3736,7 +3723,8 @@ def phase_train_granite(dev, card: str) -> dict:
     decode attention nor moe_gmm_skip may launch.  Reports the median step
     time over steps 3-8, tokens/s, the peak memory and an estimate of
     flash's plain-vjp backward's share of the step (one such backward
-    timed on its own, times the layers).  Returns the kernels' counts."""
+    timed on its own, times the layers).  Returns the kernels' counts and
+    {"step_s", "peak_memory_bytes"} of the run."""
     from repro_torch.configs import base as cb
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import moe_gmm as gmm
@@ -3789,7 +3777,7 @@ def phase_train_granite(dev, card: str) -> dict:
          flash_vjp_ms_one_call=round(vjp_ms, 4),
          flash_vjp_share_of_step_estimate=round(layers * vjp_ms / step_ms, 4),
          counts=counts, off_path_launches=off_path)
-    return counts
+    return counts, {k: report[k] for k in ("step_s", "peak_memory_bytes")}
 
 
 def phase_train_restart(dev) -> None:
@@ -3841,18 +3829,351 @@ def phase_train_restart(dev) -> None:
          clean["losses"][-replayed:])
 
 
-def phase_train(dev, card: str) -> dict:
+def phase_train(dev, card: str) -> tuple[dict, dict]:
     """The training slice: the Functions' gradients, then granite's
-    training (its main path: the counts it returns) and the supervised
-    restart."""
+    training (its main path: the counts and step summary it returns) and
+    the supervised restart."""
     t0 = time.perf_counter()
     phase_train_grads(dev)
     torch.cuda.empty_cache()
-    counts = phase_train_granite(dev, card)
+    counts, train = phase_train_granite(dev, card)
     torch.cuda.empty_cache()
     phase_train_restart(dev)
     emit("train_path", seconds=round(time.perf_counter() - t0, 3))
-    return counts
+    return counts, train
+
+
+# ---------------------------------------------------------------------------
+# the substrate slice: the dry run and its counter on the card, the
+# examples, the bench runner and the perf gate
+# ---------------------------------------------------------------------------
+
+KERNELS = ("window_grid", "window_cell", "flash_attention",
+           "decode_attention", "moe_gmm", "moe_gmm_skip", "rglru_scan",
+           "rwkv6_scan")
+# the totals the dry run's estimate and the counted card step must share
+# (`by_op` names ops, which the devices may lower under other names)
+COUNT_TOTALS = ("flops", "flops_total", "bytes", "bytes_read",
+                "bytes_written", "kernel_bytes", "ops", "kernels")
+# the examples on the card, each with the arguments it runs with besides
+# --device cuda; train_lm's --tiny run takes 30 steps, not 300
+EXAMPLES = (("paper_repro", ()), ("serve_models", ()),
+            ("serve_multitenant", ()), ("serve_online", ()),
+            ("serve_faulty", ()), ("quickstart", ()),
+            ("train_lm", ("--tiny", "--steps", "30")))
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import window_distance as wd
+    return {**_train_wrappers(), "window_grid": wd.window_grid,
+            "window_cell": wd.window_cell,
+            "decode_attention": da.decode_attention,
+            "moe_gmm_skip": gmm.moe_gmm_skip}
+
+
+@contextlib.contextmanager
+def kernel_launches(out: dict):
+    """Every kernel's launches while the block runs, from 0, into `out`
+    (and the window kernel's routes into out["window_routes"])."""
+    fns = _wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    wroutes = {n: dict(fns[n].routes) for n in ("window_grid",
+                                                "window_cell")}
+    yield out
+    out.update({n: fns[n].launches for n in KERNELS})
+    out["window_routes"] = {n: {r: fns[n].routes[r] - wroutes[n][r]
+                                for r in wroutes[n]} for n in wroutes}
+
+
+def dryrun_sweep_on_host() -> dict:
+    """All 32 cells of `configs.base.cells()` through `launch.dryrun` on
+    the meta device, in a host worker process while the card runs the
+    other phases: each cell's record (what `run_cell` writes) and the
+    seconds the sweep took."""
+    import tempfile
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    torch.set_num_threads(1)
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import dryrun
+    cb.load_all()
+    t0, out = time.perf_counter(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in cb.cells():
+            out[f"{arch}_{shape}_1"] = dryrun.run_cell(arch, shape, tmp)
+    return {"cells": out, "seconds": time.perf_counter() - t0}
+
+
+def phase_dryrun_sweep(sweep, work_dir: str) -> None:
+    """dryrun_sweep: the host worker's 32 cells, one line each (FLOPs by
+    dtype class, bytes, the roofline terms at the H100's rates, the
+    one-card budget and whether it fits, the kernels charged), written
+    where the bench runner's `roofline_table` reads them, and the table."""
+    from repro_torch.bench import roofline_table
+    from repro_torch.configs import base as cb
+    t0 = time.perf_counter()
+    got = sweep.result()
+    waited_s = time.perf_counter() - t0
+    cells = got["cells"]
+    check(len(cells) == 32 and set(cells) == {
+        f"{a}_{s}_1" for a, s in cb.cells()}, f"dry-run cells {set(cells)}")
+    out_dir = os.path.join(work_dir, roofline_table.DRYRUN_DIR)
+    os.makedirs(out_dir)
+    for name, r in cells.items():
+        check(r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+              and r["kernels"], f"dry run {name}: {r}")
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(r, f)
+        rf = r["roofline"]
+        emit("dryrun_cell", arch=r["arch"], shape=r["shape"], kind=r["kind"],
+             flops_by_class=r["flops_by_class"],
+             bytes=r["bytes_per_device"], ops=r["ops"],
+             kernels={k: v["calls"] for k, v in r["kernels"].items()},
+             compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+             dominant=rf["dominant"],
+             budget_gb=round(r["memory"]["hbm_budget"]["total"] / 1e9, 3),
+             fits_hbm=r["memory"]["fits_hbm"], trace_s=r["trace_s"])
+    rows = roofline_table.run(out_dir)
+    check(len(rows) == 33, f"roofline table rows {len(rows)}")
+    emit("dryrun_sweep", cells=len(cells), host_s=round(got["seconds"], 3),
+         waited_s=round(waited_s, 3), where="host process, meta device",
+         roofline_table=rows)
+
+
+def phase_dryrun_vs_card(dev, card: str, train: dict, launches: dict
+                         ) -> None:
+    """dryrun_vs_card, the slice's gate: granite-3-2b at train_granite's
+    shape (batch 4 x 1,024, 40 layers, remat full, the dry run's AdamW
+    config, weights drawn on the card) takes one training step counted
+    on the card by the dry run's counter, and its FLOPs by dtype class,
+    bytes, ops and kernel charges must equal `trace_cell`'s estimate on
+    the meta device (residue bound 0; ops the two devices name apart are
+    printed with their counts).  Then, without gating: the estimate's
+    roofline bound against train_granite's median step, the TFLOP/s of
+    that step and its share of the bf16 peak from the counted FLOPs and
+    from 6 N T, and the one-card budget against its peak memory."""
+    from repro_torch.analysis import cost
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import dryrun
+    cb.load_all()
+    cfg = cb.get_config(GRANITE)
+    spec = cb.ShapeSpec("train_granite", TRAIN["seq"], TRAIN["batch"],
+                        "train")
+    t0 = time.perf_counter()
+    est = dryrun.trace_cell(GRANITE, spec)
+    meta_s = time.perf_counter() - t0
+    step, _ = dryrun.build_cell(GRANITE, spec, dev)
+    torch.cuda.synchronize()
+    with kernel_launches(launches):
+        t0 = time.perf_counter()
+        with cost.CostCounter(device=dev.type) as c:
+            step()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    del step
+    torch.cuda.empty_cache()
+    got, want = c.result(), est["count"]
+    residue = {op: {"card": got["by_op"].get(op), "meta": want[
+        "by_op"].get(op)} for op in set(got["by_op"]) | set(want["by_op"])
+        if got["by_op"].get(op) != want["by_op"].get(op)}
+    differ = [k for k in COUNT_TOTALS if got[k] != want[k]]
+    check(not differ, f"dryrun_vs_card: the counted card step differs from "
+                      f"the meta estimate in {differ}: card "
+                      f"{ {k: got[k] for k in differ} }, meta "
+                      f"{ {k: want[k] for k in differ} }, by op {residue}")
+    check(launches["flash_attention"] == 2 * cfg.num_layers,
+          f"the counted step's flash launches {launches}")
+    step_s = train["step_s"]
+    terms = cost.roofline_terms(want["flops"], want["bytes"])
+    n, tokens = cfg.param_count(), TRAIN["batch"] * TRAIN["seq"]
+    budget = dryrun.hbm_budget(GRANITE, spec, chips=1)
+    emit("dryrun_vs_card", arch=GRANITE, card=card, shape=dataclasses.asdict(
+        spec), layers_traced=est["layers_traced"], meta_trace_s=round(
+        meta_s, 3), card_step_s=round(card_s, 3), match=True,
+        residue_bound=0, flops_by_class=want["flops"],
+        flops=want["flops_total"], bytes=want["bytes"], ops=want["ops"],
+        kernels=want["kernels"], ops_named_apart=residue,
+        estimate_compute_ms=1e3 * terms["compute_s"],
+        estimate_memory_ms=1e3 * terms["memory_s"],
+        estimate_bound_ms=1e3 * max(terms["compute_s"], terms["memory_s"]),
+        train_granite_step_ms=1e3 * step_s,
+        tflops_counted=want["flops_total"] / step_s / 1e12,
+        bf16_peak_share_counted=want["flops_total"] / step_s
+        / BF16_FLOPS_PER_S,
+        flops_6nt=6 * n * tokens,
+        tflops_6nt=6 * n * tokens / step_s / 1e12,
+        bf16_peak_share_6nt=6 * n * tokens / step_s / BF16_FLOPS_PER_S,
+        hbm_budget_gb={k: round(v / 1e9, 3) for k, v in budget.items()},
+        peak_memory_gb=train["peak_memory_bytes"] / 1e9,
+        launches=launches)
+
+
+def _paper_anchors(lines: list[str]) -> dict:
+    """paper_repro's anchor lines: fig4 minver's F speedup, fig5's
+    classes, fig6's s2 average at 50 cycles, fig7's 4-slot line."""
+    fig4 = [l.split(",") for l in lines if l.startswith("  minver,")][0]
+    fig5 = [l for l in lines if l.startswith("  # classes")][0]
+    fig6 = [l for l in lines if l.startswith("  AVERAGE,s2,50,")][0]
+    fig7 = [l for l in lines if l.startswith("  # 4slot@20K")][0]
+    return {"fig4": f"minver_speedup_F={fig4[6]} (paper 27.5)",
+            "fig5": fig5[4:], "fig6": f"avg_s2@50c={fig6.split(',')[-1]} "
+                                      f"(paper ~0.71)", "fig7": fig7[4:]}
+
+
+def phase_examples(dev, launches: dict) -> None:
+    """examples: each of the port's examples through its `main` with
+    --device cuda (the smoke-config rule: granite's and llama4's smoke
+    configs with head dim 64), its seconds and every kernel's launches:
+    paper_repro's anchor lines equal the derived anchors, the serve
+    examples run to their end (serve_faulty's crash-restart bit for bit),
+    every window launch takes the bitset route, the model examples
+    launch their attention kernels."""
+    import importlib
+    import io
+    out = {}
+    for name, extra in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf, counts = io.StringIO(), {}
+        with kernel_launches(counts), contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            mod.main(["--device", dev.type, *extra])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        routes = counts.pop("window_routes")
+        for n in ("window_grid", "window_cell"):
+            check(routes[n]["generic"] == 0, f"{name}: {n} routes {routes}")
+        row = {"seconds": round(secs, 3), "lines": len(lines),
+               "first_line": lines[0], "last_line": lines[-1],
+               "launches": counts}
+        if name == "paper_repro":
+            got = _paper_anchors(lines)
+            for fig, want in ANCHORS.items():
+                if fig in got:
+                    for part in (want if isinstance(want, tuple)
+                                 else (want,)):
+                        check(part in got[fig],
+                              f"paper_repro {fig}: {got[fig]}")
+            row["anchors"] = got
+            check(counts["window_grid"] > 0, f"{name}: {counts}")
+        elif name.startswith("serve_"):
+            check(counts["window_grid"] + counts["window_cell"] > 0,
+                  f"{name}: {counts}")
+            if name != "serve_models":
+                check(lines[0].startswith(
+                    f"# config llama4-maverick-400b-a17b-smoke on "
+                    f"{dev.type}:") and "head_dim=64" in lines[0], lines[0])
+        else:
+            check(lines[0].startswith(f"# config granite-3-2b-smoke on "
+                                      f"{dev.type}:")
+                  and "head_dim=64" in lines[0], lines[0])
+            check(counts["flash_attention"] > 0, f"{name}: {counts}")
+        if name in ("serve_multitenant", "serve_online", "quickstart"):
+            check(counts["decode_attention"] > 0, f"{name}: {counts}")
+        out[name] = row
+        emit(f"example_{name}", **row)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    emit("examples", seconds=round(sum(r["seconds"] for r in out.values()),
+                                   3), launches=launches)
+
+
+def phase_bench_runner(dev, card: str, work_dir: str,
+                       launches: dict) -> None:
+    """bench_runner: `python -m repro_torch.bench --list`, then two
+    `--only` runs with `--record` (fig4 and fig5; the roofline table of
+    the dry-run sweep's records and fig6) into one merged record, every
+    entry with the provenance `nvidia-smi` gives; then `perf_gate` of the
+    record against itself (passes) and against a copy with fig6's entry
+    2x slower (fails)."""
+    import io
+    from repro_torch.bench import BENCHES, perf_gate
+    from repro_torch.bench import __main__ as runner
+    here = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            runner.main(["--list"])
+        check(buf.getvalue().split() == list(BENCHES),
+              f"--list printed {buf.getvalue()!r}")
+        with kernel_launches(launches), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            runner.main(["--device", dev.type, "--only", "fig4,fig5",
+                         "--record"])
+            runner.main(["--device", dev.type, "--only", "roofline,fig6",
+                         "--record"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches.pop("window_routes")
+        path = os.path.join(work_dir, runner.RECORD)
+        with open(path) as f:
+            rec = json.load(f)
+        res = rec["results"]
+        check(set(res) == {"fig4_extensions", "fig5_classification",
+                           "roofline_table", "fig6_single"},
+              f"merged record {sorted(res)}")
+        for name, entry in res.items():
+            check(entry["backend"] == dev.type
+                  and entry.get("nvidia_smi") == card
+                  and entry["us_per_call"] > 0, f"{name}: {entry}")
+        check(res["roofline_table"]["derived"] ==
+              "32 dry-run cells tabulated", res["roofline_table"]["derived"])
+        check(res["fig4_extensions"]["derived"] == ANCHORS["fig4"]
+              and res["fig6_single"]["derived"] == ANCHORS["fig6"],
+              f"anchors {res}")
+        slow = os.path.join(work_dir, "slow.json")
+        res["fig6_single"]["us_per_call"] *= 2
+        with open(slow, "w") as f:
+            json.dump(rec, f)
+        gate = {}
+        for what, current in (("self", path), ("fig6 2x", slow)):
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()) as err:
+                gate[what] = perf_gate.main(["--baseline", path,
+                                             "--current", current,
+                                             "--min-us", "0"])
+            if what != "self":
+                check("fig6_single slowed 2.00x" in err.getvalue(),
+                      err.getvalue())
+        check(gate == {"self": 0, "fig6 2x": 1}, f"perf gate {gate}")
+    finally:
+        os.chdir(here)
+    emit("bench_runner", seconds=round(secs, 3), listed=len(BENCHES),
+         recorded={n: {k: e.get(k) for k in ("us_per_call", "derived",
+                                              "nvidia_smi")}
+                   for n, e in res.items()},
+         gate_exit_codes=gate, launches=launches)
+
+
+def phase_substrate(dev, card: str, train: dict, sweep) -> dict:
+    """The substrate slice, each path's kernel launches counted from 0:
+    the dry-run sweep (host), dryrun_vs_card, the examples and the bench
+    runner.  Returns every kernel's launches on the slice."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_substrate_")
+    paths = {"dryrun_vs_card": {}, "examples": {}, "bench_runner": {}}
+    try:
+        phase_dryrun_sweep(sweep, work_dir)
+        phase_dryrun_vs_card(dev, card, train, paths["dryrun_vs_card"])
+        torch.cuda.empty_cache()
+        phase_examples(dev, paths["examples"])
+        torch.cuda.empty_cache()
+        phase_bench_runner(dev, card, work_dir, paths["bench_runner"])
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    for p in paths.values():
+        p.pop("window_routes", None)
+    total = {n: sum(p.get(n, 0) for p in paths.values()) for n in KERNELS}
+    emit("substrate_path", launches=total, by_path=paths,
+         seconds=round(time.perf_counter() - t0, 3))
+    return total
 
 
 def main() -> None:
@@ -3872,12 +4193,12 @@ def main() -> None:
     try:
         # the zoo's mix table first: it is counted on the host too
         mix = pool.submit(mix_table_on_host)
-        run(opts, card, cases, start_plain(pool, cases), mix)
+        run(opts, card, cases, start_plain(pool, cases), mix, pool)
     finally:
         pool.shutdown(cancel_futures=True)
 
 
-def run(opts, card: str, cases: list, plain: list, mix) -> None:
+def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
     from repro_torch.kernels import window_distance as wd
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -3937,6 +4258,9 @@ def run(opts, card: str, cases: list, plain: list, mix) -> None:
     emit("sched_path", phases=sched)
     # the seeded small grids and cells, their plain results from the host
     phase_kernel_vs_plain(dev, late_errs, cases, plain)
+    # the dry run's 32 cells, counted on the host once the plain results
+    # are in, while the card runs the phases up to the substrate slice
+    sweep = pool.submit(dryrun_sweep_on_host)
     for row in kernels:
         name = row["name"]
         check(late_errs[name] == 0, f"{name} differs from its plain "
@@ -4039,12 +4363,22 @@ def run(opts, card: str, cases: list, plain: list, mix) -> None:
 
     # the training slice: the four kernels on its path, their launches and
     # their plain backwards on granite's training run
-    train_counts = phase_train(dev, card)
+    train_counts, train = phase_train(dev, card)
     for row in kernels:
         if row["name"] in train_counts:
             row["train_launches"] = train_counts[row["name"]]["launches"]
             row["train_backward_recomputes"] = \
                 train_counts[row["name"]]["backward_recomputes"]
+    torch.cuda.empty_cache()
+
+    # the substrate slice: the dry run against a counted card step, the
+    # examples and the bench runner; their launches join every row
+    substrate = phase_substrate(dev, card, train, sweep)
+    for row in kernels:
+        by_slice = row.setdefault("launches_by_slice",
+                                  {"model slices": row["launches"]})
+        by_slice["substrate"] = substrate[row["name"]]
+        row["launches"] += substrate[row["name"]]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,8 +7,9 @@ benchmarks, the full report `--record` keeps.  The anchors are integer
 simulations turned into float32 CPIs, so they do not depend on the device:
 fig4 minver_speedup_F=27.50, fig5 5/8/9, fig6 avg_s2@50c=0.687, fig7
 abs 0.81 of IMF (x3.13/x1.39/x1.67), P=4 fleet 0.935/0.757/0.452.
-`bench_expert_slots` serves a smoke-size MoE model through the slot
-engine; its derived line is its first row, as the JAX runner records it.
+`expert_slots` (module `bench_expert_slots`) serves a smoke-size MoE
+model through the slot engine; its derived line is its first row, as the
+JAX runner records it.
 The sched benchmarks (`placement_study`, `placement_search`,
 `online_churn`, `chaos_serve`, `fleet_scale_study`) derive their
 "# finding" line, as the JAX runner does (anchors: P2/P3/P4
@@ -17,10 +18,15 @@ The sched benchmarks (`placement_study`, `placement_search`,
 `model_serve_study` (the model-zoo fleet, `repro_torch.workloads`)
 derives its "# finding" line; `perf_sweep` and `window_kernel` (the
 simulator's engines head to head, parity before timing) their summary
-lines, and hand their reports to `--record`.
-`python -m repro_torch.bench` runs them all.
+lines, and hand their reports to `--record`; `roofline_table` tabulates
+the dry run's records (`repro_torch.launch.dryrun`).
+`python -m repro_torch.bench` runs them all; `audit_registration` holds
+every module of this package to `BENCHES` (through `MODULE_OF`) or to
+`EXCLUDED`, as the reference's runner does.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -30,7 +36,7 @@ from repro_torch.bench import (bench_expert_slots, bitstream_study,
                                fleet_scale_study, model_serve_study,
                                online_churn, perf_slot_decode, perf_sweep,
                                placement_search, placement_study,
-                               window_kernel)
+                               roofline_table, window_kernel)
 
 
 def _capture(main, **kw) -> list[str]:
@@ -136,6 +142,11 @@ def bench_window_kernel(device="cuda"):
     return lines, finding(lines), report
 
 
+def bench_roofline(device="cuda"):
+    lines = _capture(roofline_table.main)
+    return lines, f"{len(lines) - 1} dry-run cells tabulated"
+
+
 BENCHES = {
     "fig4_extensions": bench_fig4,
     "fig5_classification": bench_fig5,
@@ -143,8 +154,9 @@ BENCHES = {
     "fig7_multi": bench_fig7,
     "fleet_sweep": bench_fleet_sweep,
     "bitstream_study": bench_bitstream_study,
-    "bench_expert_slots": bench_slots,
+    "expert_slots": bench_slots,
     "perf_slot_decode": bench_perf_slot_decode,
+    "roofline_table": bench_roofline,
     "placement_study": bench_placement_study,
     "placement_search": bench_placement_search,
     "online_churn": bench_online_churn,
@@ -154,3 +166,48 @@ BENCHES = {
     "perf_sweep": bench_perf_sweep,
     "window_kernel": bench_window_kernel,
 }
+
+# registration audit: every benchmark module of this package backs a
+# BENCHES entry or is listed with the reason it is excluded
+MODULE_OF = {
+    "fig4_extensions": "fig4_extensions",
+    "fig5_classification": "fig5_classification",
+    "fig6_single": "fig6_single",
+    "fig7_multi": "fig7_multi",
+    "fleet_sweep": "fig7_multi",            # second entry point (run_fleets)
+    "bitstream_study": "bitstream_study",
+    "expert_slots": "bench_expert_slots",
+    "perf_slot_decode": "perf_slot_decode",
+    "roofline_table": "roofline_table",
+    "placement_study": "placement_study",
+    "placement_search": "placement_search",
+    "online_churn": "online_churn",
+    "chaos_serve": "chaos_serve",
+    "fleet_scale_study": "fleet_scale_study",
+    "model_serve_study": "model_serve_study",
+    "perf_sweep": "perf_sweep",
+    "window_kernel": "window_kernel",
+}
+EXCLUDED = {
+    "perf_gate": "the gate comparing two bench_torch.json records, not a "
+                 "benchmark",
+}
+
+
+def audit_registration(bench_dir: str | None = None) -> None:
+    """Raise if a module of this package (`_`-prefixed ones aside) is
+    neither registered (MODULE_OF) nor EXCLUDED, or if either map is
+    stale: the reference runner's `audit_registration`."""
+    bench_dir = bench_dir or os.path.dirname(os.path.abspath(__file__))
+    modules = {os.path.splitext(f)[0] for f in os.listdir(bench_dir)
+               if f.endswith(".py") and not f.startswith("_")}
+    missing_map = set(BENCHES) - set(MODULE_OF)
+    registered = set(MODULE_OF.values())
+    orphans = modules - registered - set(EXCLUDED)
+    stale = (registered | set(EXCLUDED)) - modules
+    if missing_map or orphans or stale:
+        raise AssertionError(
+            f"benchmark registration audit failed: "
+            f"BENCHES entries missing from MODULE_OF={sorted(missing_map)}, "
+            f"orphan modules={sorted(orphans)}, "
+            f"stale references={sorted(stale)}")

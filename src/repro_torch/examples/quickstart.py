@@ -1,16 +1,19 @@
 """Quickstart: train a tiny granite-family LM and decode from it.
 PyTorch port of `examples/quickstart.py`.
 
+    python -m repro_torch.examples.quickstart                  # card
     PYTHONPATH=src python -m repro_torch.examples.quickstart --device cpu
 
-(The smoke config's head dim 16 is not one the card's attention kernels
-take: run it on the CPU.)
+It runs granite's smoke config: on the CPU exactly, on the card with head
+dim 64 (the smoke-config rule of `repro_torch.examples`), and prints it
+first.
 """
 import argparse
 import tempfile
 
 import torch
 
+from repro_torch import examples
 from repro_torch.configs import base as cb
 from repro_torch.device import resolve_device
 from repro_torch.launch import train as train_mod
@@ -23,17 +26,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cb.load_all()
     dev = resolve_device(args.device)
+    cfg = examples.smoke_config("granite-3-2b", dev)
+    print(examples.config_line(cfg, dev))
     # 1. train a reduced granite config for a few steps (full driver:
     #    deterministic data, checkpointing, fault supervision)
     with tempfile.TemporaryDirectory() as tmp:
-        report = train_mod.run("granite-3-2b", smoke=True, steps=20,
+        report = train_mod.run(cfg.name, smoke=False, steps=20,
                                batch=4, seq=64, ckpt_dir=tmp, ckpt_every=10,
                                log_every=5, device=dev)
     print(f"trained to step {report['final_step']}; "
           f"loss {report['losses'][0]:.3f} -> {report['losses'][-1]:.3f}")
 
     # 2. greedy-decode a few tokens with the prefill/decode serving path
-    cfg = cb.get_config("granite-3-2b").smoke()
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     prompt = torch.tensor([[5, 17, 9, 2]], dtype=torch.int32, device=dev)

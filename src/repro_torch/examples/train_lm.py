@@ -6,15 +6,18 @@ straggler monitoring).  PyTorch port of `examples/train_lm.py`.
     PYTHONPATH=src python -m repro_torch.examples.train_lm --tiny \\
         --device cpu                                                # CPU
 
-`--tiny` trains granite's smoke config (head dim 16: on the card the
-attention kernels do not take it, so pass `--device cpu`).  Checkpoints
-go to `--ckpt-dir`, or to a temporary directory removed at the end.
+`--tiny` trains granite's smoke config: on the CPU exactly, on the card
+with head dim 64 (the smoke-config rule of `repro_torch.examples`); the
+first line is the config it trains.  Checkpoints go to `--ckpt-dir`, or
+to a temporary directory removed at the end.
 """
 import argparse
 import dataclasses
 import tempfile
 
+from repro_torch import examples
 from repro_torch.configs import base as cb
+from repro_torch.device import resolve_device
 from repro_torch.launch import train as train_mod
 
 
@@ -27,9 +30,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cb.load_all()
+    dev = resolve_device(args.device)
     base = cb.get_config("granite-3-2b")
     if args.tiny:
-        arch = "granite-3-2b"
+        cfg = examples.smoke_config("granite-3-2b", dev)
     else:  # ~100M params: 8 x 512 with a 16k vocab
         cfg = dataclasses.replace(
             base, name="granite-100m", num_layers=8, d_model=512,
@@ -37,12 +41,12 @@ def main(argv=None):
             head_dim=64, dtype="float32", remat="none", loss_chunk=0,
             skip_shapes={})
         cb.register(cfg)
-        arch = cfg.name
+    print(examples.config_line(cfg, dev))
     with tempfile.TemporaryDirectory() as tmp:
         report = train_mod.run(
-            arch, smoke=args.tiny, steps=args.steps, batch=4, seq=128,
+            cfg.name, smoke=False, steps=args.steps, batch=4, seq=128,
             ckpt_dir=args.ckpt_dir or tmp, ckpt_every=50, log_every=10,
-            device=args.device)
+            device=dev)
     print(f"final loss {report['losses'][-1]:.4f} after "
           f"{report['final_step']} steps "
           f"({report['restarts']} restarts, "

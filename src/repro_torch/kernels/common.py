@@ -11,6 +11,12 @@ the function the reference differentiates.  A kernel on no training path
 (decode attention, `moe_gmm_skip`) calls `no_vjp` before it launches and
 raises where autograd would record.
 
+Under a cost counter (`repro_torch.analysis.cost`) on the CPU or the meta
+device, `route` sends a wrapper to its kernel's stand-in (`stand_in`):
+the card's route with the kernel's launch replaced by its plain body
+(empty outputs on meta), charged the kernel's count, so that a counted
+step takes the card's route, its backward included, on every device.
+
 Each kernel is one CUDA C++ source under `csrc/` with a plain C entry
 point.  `build` compiles it for `sm_90a` at first use, into a shared
 library named by the sha1 of the source, its local headers and the flags
@@ -22,6 +28,7 @@ CPU has no `nvcc`, and the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -31,8 +38,11 @@ import tempfile
 
 import torch
 
-__all__ = ["resolve", "with_plain_vjp", "no_vjp", "KernelVjp", "build",
-           "library", "ptxas_report", "BUILD_DIR", "NVCC_FLAGS"]
+from repro_torch.analysis import cost
+
+__all__ = ["resolve", "route", "stand_in", "with_plain_vjp", "no_vjp",
+           "KernelVjp", "build", "library", "ptxas_report",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -69,6 +79,31 @@ def resolve(use_kernel, device: torch.device) -> bool:
     return mode != "plain"
 
 
+def route(use_kernel, device: torch.device) -> str:
+    """Where a wrapper sends a call on tensors on `device`: "kernel" (CUDA
+    tensors), "stand-in" (CPU or meta tensors under a cost counter:
+    `stand_in`) or "plain" (the plain body, or `use_kernel="plain"`)."""
+    if not resolve(use_kernel, device):
+        return "plain"
+    if torch.device(device).type == "cuda":
+        return "kernel"
+    return "stand-in" if cost.counting() is not None else "plain"
+
+
+def stand_in(name: str, count, body, meta):
+    """The launch of kernel `name` on the "stand-in" route: charged
+    `count(*inputs)` (the kernel's `cost` dict) under the active counters,
+    it returns `body(*inputs)` (the plain body, whose ops are not
+    counted), or `meta(*inputs)` (empty outputs of the kernel's shapes)
+    on the meta device."""
+    def launch(*inputs):
+        with cost.kernel(name, lambda: count(*inputs)):
+            if inputs[0].device.type == "meta":
+                return meta(*inputs)
+            return body(*inputs)
+    return launch
+
+
 def _recorded(inputs) -> bool:
     """Would autograd record an op on `inputs`?"""
     return torch.is_grad_enabled() and any(
@@ -97,20 +132,40 @@ class KernelVjp(torch.autograd.Function):
     def backward(ctx, *grads):
         inputs = ctx.saved_tensors
         need = ctx.needs_input_grad[3:]
-        leaves = [None if t is None else t.detach().requires_grad_(n)
-                  for t, n in zip(inputs, need)]
-        wanted = [t for t, n in zip(leaves, need) if n]
-        with torch.enable_grad():
-            outs = ctx.plain(*leaves)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        pairs = [(o, g) for o, g in zip(outs, grads)
-                 if g is not None and o.requires_grad]
-        got = iter(torch.autograd.grad(
-            [o for o, _ in pairs], wanted, [g for _, g in pairs],
-            allow_unused=True))
-        ctx.owner.backward_recomputes += 1
-        return (None, None, None,
-                *(next(got) if n else None for n in need))
+
+        def run():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(inputs, need)]
+            wanted = [t for t, n in zip(leaves, need) if n]
+            with torch.enable_grad():
+                outs = ctx.plain(*leaves)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads)
+                     if g is not None and o.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [g for _, g in pairs],
+                allow_unused=True))
+            ctx.owner.backward_recomputes += 1
+            return (None, None, None,
+                    *(next(got) if n else None for n in need))
+
+        if inputs[0].device.type != "meta" or cost.counting() is None:
+            return run()
+        # counted on meta: the layers repeat this backward at these shapes
+        return cost.replay((_function_key(ctx.plain), _layout(inputs),
+                            need, _layout(grads)), run)
+
+
+def _layout(tensors) -> tuple:
+    return tuple(None if t is None else (tuple(t.shape), t.stride(), t.dtype)
+                 for t in tensors)
+
+
+def _function_key(fn) -> tuple:
+    """A hashable description of `fn`, a function or a partial of one."""
+    if isinstance(fn, functools.partial):
+        return (fn.func, fn.args, tuple(sorted(fn.keywords.items())))
+    return (fn,)
 
 
 def with_plain_vjp(owner, launch, plain, *inputs):

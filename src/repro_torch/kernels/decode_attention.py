@@ -25,6 +25,8 @@ has kv_len >= 1.
 `decode_attention` owns the choice: CUDA tensors launch the kernel (and
 count it in `decode_attention.launches`) or raise, CPU tensors run the
 plain version; `use_kernel="plain"` forces the plain version anywhere.
+`cost` is the kernel's count for a cost counter (`analysis.cost`) and
+its bound.
 """
 from __future__ import annotations
 
@@ -33,11 +35,12 @@ import os
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import common
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_split_plain", "split_plan", "scratch",
-           "smem_bytes", "build"]
+           "smem_bytes", "build", "cost"]
 
 NEG_INF = -1e30
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -218,17 +221,45 @@ def _launch(q, k_cache, v_cache, kv_len) -> torch.Tensor:
     return out
 
 
+def cost(b: int, h: int, kh: int, dh: int, n_len: int,
+         dtype: torch.dtype) -> dict:
+    """The kernel's count (`analysis.cost.work`) over `n_len` valid cache
+    positions in all (the sum of kv_len): 4 H Dh FLOPs a position (the two
+    products) in `dtype`'s class; those positions' keys and values, q,
+    the output and the int32 kv_len moved once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return _cost.work(4 * n_len * h * dh, _cost.dtype_class(dtype),
+                      elem * (2 * n_len * kh * dh + 2 * b * h * dh) + 4 * b)
+
+
+def _work(q, k_cache, v_cache, kv_len) -> dict:
+    """`cost` of a call over the whole cache (a count reads no values)."""
+    b, h, dh = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    return cost(b, h, kh, dh, b * s, q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, kv_len, *, use_kernel=None):
     """Attention of one token per row, q (B, H, dh), over the first
     `kv_len[b]` positions of k/v_cache (B, S, KH, dh).  Returns (B, H,
     dh).  CUDA tensors launch the decode kernel; CPU tensors, or
     `use_kernel="plain"`, run `decode_attention_plain`;
     `use_kernel="kernel"` raises on CPU, and the kernel, which lies on
-    no training path, raises where autograd would record."""
-    if not common.resolve(use_kernel, q.device) or q.device.type != "cuda":
+    no training path, raises where autograd would record.  Under a cost
+    counter CPU and meta tensors take the kernel's route
+    (`common.stand_in`)."""
+    how = common.route(use_kernel, q.device)
+    if how == "plain":
         return decode_attention_plain(q, k_cache, v_cache, kv_len)
     common.no_vjp("decode_attention", q, k_cache, v_cache)
-    out = _launch(q, k_cache, v_cache, kv_len)
+    if how == "stand-in":
+        return common.stand_in("decode_attention", _work,
+                               decode_attention_plain,
+                               lambda q, *_: torch.empty_like(q))(
+            q, k_cache, v_cache, kv_len)
+    with _cost.kernel("decode_attention", lambda: _work(
+            q, k_cache, v_cache, kv_len)):
+        out = _launch(q, k_cache, v_cache, kv_len)
     decode_attention.launches += 1
     return out
 

@@ -26,6 +26,9 @@ plain version; `use_kernel="plain"` forces the plain version anywhere.
 Where autograd records, the kernel's backward is the plain version's
 vector-Jacobian product (`common.KernelVjp`): the JAX models train
 through the pure-JAX block scan and no Pallas backward exists.
+`cost` is the kernel's count for a cost counter (`analysis.cost`) and
+its bound: 4 B H Dh FLOPs a visible (query, key) pair, q, k, v read and
+the output written once.
 """
 from __future__ import annotations
 
@@ -35,10 +38,11 @@ import os
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import common
 
 __all__ = ["flash_attention", "flash_attention_plain", "smem_bytes", "build",
-           "NEG_INF"]
+           "cost", "visible_pairs", "NEG_INF"]
 
 NEG_INF = -1e30
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -96,6 +100,35 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, tq, h, dh).to(q.dtype)
+
+
+def visible_pairs(tq: int, tk: int, causal: bool = True,
+                  window: int = 0) -> int:
+    """(query, key) pairs a prompt attends: query i (from position 0)
+    sees keys up to i, within `window`, when causal; all tk otherwise."""
+    if not causal:
+        return tq * tk
+    cap = min(tk, window) if window else tk
+    if tq <= cap:
+        return tq * (tq + 1) // 2
+    return cap * (cap + 1) // 2 + (tq - cap) * cap
+
+
+def cost(b: int, tq: int, tk: int, h: int, kh: int, dh: int,
+         dtype: torch.dtype, *, causal: bool = True, window: int = 0) -> dict:
+    """The kernel's count (`analysis.cost.work`): 4 B H Dh FLOPs a visible
+    pair (the two products) in `dtype`'s class, and q, k, v read and the
+    output written once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return _cost.work(4 * b * h * dh * visible_pairs(tq, tk, causal, window),
+                      _cost.dtype_class(dtype),
+                      elem * b * (2 * tq * h + 2 * tk * kh) * dh)
+
+
+def _work(q, k, v, *, causal: bool, window: int) -> dict:
+    b, tq, h, dh = q.shape
+    return cost(b, tq, k.shape[1], h, k.shape[2], dh, q.dtype, causal=causal,
+                window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +217,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     `use_kernel="plain"`, run `flash_attention_plain`;
     `use_kernel="kernel"` raises on CPU.  Under autograd the kernel's
     output takes the plain version's gradient (`common.with_plain_vjp`,
-    counted in `flash_attention.backward_recomputes`)."""
-    if not common.resolve(use_kernel, q.device) or q.device.type != "cuda":
+    counted in `flash_attention.backward_recomputes`).  Under a cost
+    counter CPU and meta tensors take the kernel's route
+    (`common.stand_in`)."""
+    how = common.route(use_kernel, q.device)
+    if how == "plain":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block=block, q_offset=q_offset,
                                      kv_len=kv_len, kv_start=kv_start)
@@ -194,6 +230,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             "the flash kernel takes q_offset=0 and no kv_len/kv_start, as "
             "the Pallas kernel does: attend over the whole sequence with "
             "causal=True and a window instead")
+    if how == "stand-in":
+        plain = functools.partial(flash_attention_plain, causal=causal,
+                                  window=window, block=block)
+        return common.with_plain_vjp(flash_attention, common.stand_in(
+            "flash_attention", functools.partial(
+                _work, causal=causal, window=window), plain,
+            lambda q, k, v: torch.empty_like(q)), plain, q, k, v)
     return _with_plain_vjp(q, k, v, causal=causal, window=window,
                            block=block)
 
@@ -208,7 +251,9 @@ def _with_plain_vjp(q, k, v, *, causal: bool, window: int, block: int):
 
 
 def _kernel(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
-    out = _launch(q, k, v, causal=causal, window=window)
+    with _cost.kernel("flash_attention", lambda: _work(
+            q, k, v, causal=causal, window=window)):
+        out = _launch(q, k, v, causal=causal, window=window)
     flash_attention.launches += 1
     return out
 

@@ -36,7 +36,8 @@ path of a MoE arch) takes the plain version's vector-Jacobian product as
 its backward (`common.KernelVjp`, counted in
 `moe_gmm.backward_recomputes`); `moe_gmm_skip` (decode only) raises.  The
 Pallas kernels' block sizes are TPU tiling knobs with no counterpart
-here.
+here.  `cost` is the kernels' count for a cost counter (`analysis.cost`)
+and their bound.
 """
 from __future__ import annotations
 
@@ -47,10 +48,11 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import common
 
 __all__ = ["moe_gmm", "moe_gmm_skip", "moe_gmm_plain", "moe_gmm_skip_plain",
-           "build"]
+           "build", "cost"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "moe_gmm.cu")
@@ -88,6 +90,29 @@ def moe_gmm_skip_plain(x, wg, wi, wo, counts, *,
             out[e] = _expert_plain(x[e], wg[e], wi[e] if gated else None,
                                    wo[e], gated)
     return out
+
+
+def cost(live: int, e: int, c: int, d: int, f: int, dtype: torch.dtype,
+         *, gated: bool = True, counts: bool = False) -> dict:
+    """The kernels' count (`analysis.cost.work`) with `live` of the `e`
+    experts live (all of them for `moe_gmm`): 2 C D F FLOPs a weight
+    matrix of a live expert (3 gated, 2 ungated) in `dtype`'s class; the
+    live experts' weights and rows read once, the whole output written
+    once, and the int32 counts read."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    mats = 3 if gated else 2
+    return _cost.work(
+        2 * mats * live * c * d * f, _cost.dtype_class(dtype),
+        elem * (mats * live * d * f + live * c * d + e * c * d)
+        + 4 * e * counts)
+
+
+def _work(x, wg, wi, wo, counts=None, *, gated: bool) -> dict:
+    """`cost` of a call with every expert live (a count reads no
+    values)."""
+    e, c, d = x.shape
+    return cost(e, e, c, d, wg.shape[-1], x.dtype, gated=gated,
+                counts=counts is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +188,20 @@ def _launch(x, wg, wi, wo, counts, gated: bool) -> tuple[torch.Tensor, str]:
 def moe_gmm(x, wg, wi, wo, *, gated: bool = True, use_kernel=None):
     """The grouped expert FFN of every expert (see the module docstring).
     CUDA tensors launch the kernel; CPU tensors, or `use_kernel="plain"`,
-    run `moe_gmm_plain`; `use_kernel="kernel"` raises on CPU."""
-    if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
+    run `moe_gmm_plain`; `use_kernel="kernel"` raises on CPU.  Under a
+    cost counter CPU and meta tensors take the kernel's route
+    (`common.stand_in`)."""
+    how = common.route(use_kernel, x.device)
+    if how == "plain":
         return moe_gmm_plain(x, wg, wi, wo, gated=gated)
     # the ungated form reads no wi: it is not an input of the function
-    return _with_plain_vjp(x, wg, wi if gated else None, wo, gated=gated)
+    wi = wi if gated else None
+    if how == "stand-in":
+        plain = functools.partial(moe_gmm_plain, gated=gated)
+        return common.with_plain_vjp(moe_gmm, common.stand_in(
+            "moe_gmm", functools.partial(_work, gated=gated), plain,
+            lambda x, *_: torch.empty_like(x)), plain, x, wg, wi, wo)
+    return _with_plain_vjp(x, wg, wi, wo, gated=gated)
 
 
 def _with_plain_vjp(x, wg, wi, wo, *, gated: bool):
@@ -178,7 +212,8 @@ def _with_plain_vjp(x, wg, wi, wo, *, gated: bool):
 
 
 def _kernel(x, wg, wi, wo, *, gated: bool) -> torch.Tensor:
-    out, route = _launch(x, wg, wi, wo, None, gated)
+    with _cost.kernel("moe_gmm", lambda: _work(x, wg, wi, wo, gated=gated)):
+        out, route = _launch(x, wg, wi, wo, None, gated)
     moe_gmm.launches += 1
     moe_gmm.routes[route] += 1
     return out
@@ -189,10 +224,18 @@ def moe_gmm_skip(x, wg, wi, wo, counts, *, gated: bool = True,
     """The grouped expert FFN of the experts with counts[e] > 0, exact
     zeros for the others, whose weights the kernel never reads.  Device
     rule as `moe_gmm`'s."""
-    if not common.resolve(use_kernel, x.device) or x.device.type != "cuda":
+    how = common.route(use_kernel, x.device)
+    if how == "plain":
         return moe_gmm_skip_plain(x, wg, wi, wo, counts, gated=gated)
     common.no_vjp("moe_gmm_skip", x, wg, wi, wo)
-    out, route = _launch(x, wg, wi, wo, counts, gated)
+    if how == "stand-in":
+        return common.stand_in(
+            "moe_gmm_skip", functools.partial(_work, gated=gated),
+            functools.partial(moe_gmm_skip_plain, gated=gated),
+            lambda x, *_: torch.empty_like(x))(x, wg, wi, wo, counts)
+    with _cost.kernel("moe_gmm_skip", lambda: _work(
+            x, wg, wi, wo, counts, gated=gated)):
+        out, route = _launch(x, wg, wi, wo, counts, gated)
     moe_gmm_skip.launches += 1
     moe_gmm_skip.routes[route] += 1
     return out

@@ -37,7 +37,8 @@ the plain version anywhere.  Where autograd records, the kernel's backward
 is `rglru_scan_chunked_plain`'s vector-Jacobian product
 (`common.KernelVjp`, counted in `rglru_scan.backward_recomputes`); the
 gradient of u comes back in u's dtype.  The Pallas kernel's
-`chunk`/`block_w` are TPU tiling knobs with no counterpart here.
+`chunk`/`block_w` are TPU tiling knobs with no counterpart here.  `cost`
+is the kernel's count for a cost counter (`analysis.cost`) and its bound.
 """
 from __future__ import annotations
 
@@ -47,10 +48,11 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import common
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_chunked_plain",
-           "build", "C_RGLRU", "CHUNK", "ROUTES"]
+           "build", "cost", "C_RGLRU", "CHUNK", "ROUTES", "OPS_PER_ELEM"]
 
 C_RGLRU = 8.0
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -58,6 +60,9 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("chunked", "step")
 CHUNK = 64              # steps a chunk of the kernel's chunked route
+# f32 operations an element of the recurrence takes: two sigmoids, the
+# softplus-scaled decay, an exp, a sqrt and the FMA
+OPS_PER_ELEM = 22
 
 
 def _gates(u, w_r, b_r, w_i, b_i, lam):
@@ -117,6 +122,27 @@ def rglru_scan_chunked_plain(u, w_r, b_r, w_i, b_i, lam, h0=None,
         out[:, :, s] = h
     out = out.reshape(bsz, -1, w)[:, :t]
     return out, out[:, -1]
+
+
+def cost(b: int, t: int, w: int, dtype: torch.dtype, h0: bool) -> dict:
+    """The kernel's count (`analysis.cost.work`): OPS_PER_ELEM f32
+    operations an element; u (in `dtype`), the five gate vectors and h0
+    read once, h and h_last written once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return _cost.work(OPS_PER_ELEM * b * t * w, "f32",
+                      elem * b * t * w + 5 * 4 * w + 4 * b * w * h0
+                      + 4 * b * t * w + 4 * b * w)
+
+
+def _work(u, w_r, b_r, w_i, b_i, lam, h0) -> dict:
+    b, t, w = u.shape
+    return cost(b, t, w, u.dtype, h0 is not None)
+
+
+def _empty_outputs(u, *_):
+    b, t, w = u.shape
+    return (torch.empty((b, t, w), dtype=torch.float32, device=u.device),
+            torch.empty((b, w), dtype=torch.float32, device=u.device))
 
 
 # ---------------------------------------------------------------------------
@@ -185,9 +211,16 @@ def rglru_scan(u, w_r, b_r, w_i, b_i, lam, h0=None, *, use_kernel=None):
     Returns (h (B, T, W) f32, h_last (B, W) f32).  CUDA tensors launch the
     kernel on the route its entry point picks; CPU tensors, or
     `use_kernel="plain"`, run `rglru_scan_plain`; `use_kernel="kernel"`
-    raises on CPU."""
-    if not common.resolve(use_kernel, u.device) or u.device.type != "cuda":
+    raises on CPU.  Under a cost counter CPU and meta tensors take the
+    kernel's route (`common.stand_in`)."""
+    how = common.route(use_kernel, u.device)
+    if how == "plain":
         return rglru_scan_plain(u, w_r, b_r, w_i, b_i, lam, h0)
+    if how == "stand-in":
+        return common.with_plain_vjp(
+            rglru_scan, common.stand_in(
+                "rglru_scan", _work, rglru_scan_plain, _empty_outputs),
+            rglru_scan_chunked_plain, u, w_r, b_r, w_i, b_i, lam, h0)
     return _with_plain_vjp(u, w_r, b_r, w_i, b_i, lam, h0)
 
 
@@ -199,7 +232,9 @@ def _with_plain_vjp(u, w_r, b_r, w_i, b_i, lam, h0):
 
 
 def _kernel(u, w_r, b_r, w_i, b_i, lam, h0):
-    out, route = _launch(u, (w_r, b_r, w_i, b_i, lam), h0)
+    with _cost.kernel("rglru_scan", lambda: _work(
+            u, w_r, b_r, w_i, b_i, lam, h0)):
+        out, route = _launch(u, (w_r, b_r, w_i, b_i, lam), h0)
     rglru_scan.launches += 1
     rglru_scan.routes[route] += 1
     return out

@@ -43,7 +43,8 @@ autograd records, the kernel's backward is `rwkv6_scan_chunked_plain`'s
 vector-Jacobian product (`common.KernelVjp`, counted in
 `rwkv6_scan.backward_recomputes`); the gradients of r, k and v come back
 in their dtype.  The Pallas kernel's `chunk` is a TPU tiling knob with no
-counterpart here.
+counterpart here.  `cost` is the kernel's count for a cost counter
+(`analysis.cost`) and its bound.
 """
 from __future__ import annotations
 
@@ -52,10 +53,11 @@ import os
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import common
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_chunked_plain",
-           "build", "HEAD_DIMS", "ROUTES", "SUB_CHUNK"]
+           "build", "cost", "HEAD_DIMS", "ROUTES", "SUB_CHUNK"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "rwkv6_scan.cu")
@@ -133,6 +135,30 @@ def rwkv6_scan_chunked_plain(r, k, v, logw, u, s0=None, sub_chunk=SUB_CHUNK):
     return out.contiguous(), s
 
 
+def cost(b: int, t: int, h: int, n: int, dtype: torch.dtype,
+         s0: bool) -> dict:
+    """The kernel's count (`analysis.cost.work`): 4 N^2 f32 operations a
+    token and head (the state's update and its read); r, k, v (in
+    `dtype`), the f32 decays, the bonus and s0 read once, o and the final
+    state written once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return _cost.work(4 * n * n * b * t * h, "f32",
+                      (3 * elem + 4) * b * t * h * n + 4 * h * n
+                      + 4 * b * h * n * n * s0 + 4 * b * t * h * n
+                      + 4 * b * h * n * n)
+
+
+def _work(r, k, v, logw, u, s0) -> dict:
+    b, t, h, n = r.shape
+    return cost(b, t, h, n, r.dtype, s0 is not None)
+
+
+def _empty_outputs(r, *_):
+    b, t, h, n = r.shape
+    return (torch.empty((b, t, h, n), dtype=torch.float32, device=r.device),
+            torch.empty((b, h, n, n), dtype=torch.float32, device=r.device))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
@@ -208,9 +234,16 @@ def rwkv6_scan(r, k, v, logw, u, s0=None, *, use_kernel=None):
     (B, T, H, N) f32, S_T (B, H, N, N) f32).  CUDA tensors launch the
     kernel on the route its entry point picks; CPU tensors, or
     `use_kernel="plain"`, run `rwkv6_scan_plain`; `use_kernel="kernel"`
-    raises on CPU."""
-    if not common.resolve(use_kernel, r.device) or r.device.type != "cuda":
+    raises on CPU.  Under a cost counter CPU and meta tensors take the
+    kernel's route (`common.stand_in`)."""
+    how = common.route(use_kernel, r.device)
+    if how == "plain":
         return rwkv6_scan_plain(r, k, v, logw, u, s0)
+    if how == "stand-in":
+        return common.with_plain_vjp(
+            rwkv6_scan, common.stand_in(
+                "rwkv6_scan", _work, rwkv6_scan_plain, _empty_outputs),
+            rwkv6_scan_chunked_plain, r, k, v, logw, u, s0)
     return _with_plain_vjp(r, k, v, logw, u, s0)
 
 
@@ -222,7 +255,8 @@ def _with_plain_vjp(r, k, v, logw, u, s0):
 
 
 def _kernel(r, k, v, logw, u, s0):
-    out, route = _launch(r, k, v, logw, u, s0)
+    with _cost.kernel("rwkv6_scan", lambda: _work(r, k, v, logw, u, s0)):
+        out, route = _launch(r, k, v, logw, u, s0)
     rwkv6_scan.launches += 1
     rwkv6_scan.routes[route] += 1
     return out

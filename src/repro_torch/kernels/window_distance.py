@@ -35,7 +35,9 @@ step in plain PyTorch; only the tests run it.
 CUDA tensors launch the kernel (or raise), CPU tensors run the plain
 version.  Each counts its kernel launches in a plain integer attribute
 (`window_grid.launches`, `window_cell.launches`) and its launches per
-route in a dict (`window_grid.routes`, `window_cell.routes`).
+route in a dict (`window_grid.routes`, `window_cell.routes`).  `cost` is
+the kernel's count for a cost counter (`analysis.cost`), whichever
+version runs, and its bound.
 """
 from __future__ import annotations
 
@@ -45,13 +47,14 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import common
 from repro_torch.kernels.common import resolve
 
 __all__ = ["window_grid", "window_cell", "window_grid_plain",
            "window_cell_plain", "window_loop_plain",
            "window_loop_bitset_plain", "route", "ROUTES", "resolve",
-           "build", "Carry"]
+           "build", "cost", "Carry"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "window_distance.cu")
@@ -703,6 +706,37 @@ def _launch(ptags, pcosts, counts, lats, quanta, schedule, seed, *,
     return out_vec, out_sca, out_last, out_miss, taken
 
 
+def cost(stream_elems: int, cells: int, total_steps: int, num_tags: int,
+         num_progs: int, *, cell: bool = False) -> dict:
+    """The kernel's count (`analysis.cost.work`) for `cells` cells of
+    `total_steps` committed accesses each: 2 num_tags + 8 int32 operations
+    an access (the stack-distance compares and the per-tag last-position
+    update, the cost, scan, expiry and counter arithmetic); each tag/cost
+    element read once (at most the whole streams, at most one per
+    access), and the outputs (a grid's four program vectors and switch
+    count a cell; a cell's two tag vectors, five program vectors and four
+    scalars, and as much seed) written once."""
+    accesses = cells * total_steps
+    other = (4 * 2 * (num_tags + 5 * num_progs + 4) if cell
+             else 4 * cells * (4 * num_progs + 1))
+    return _cost.work(accesses * (2 * num_tags + 8), "int",
+                      8 * min(stream_elems, accesses) + other)
+
+
+def _grid_work(ptags, slot_counts, miss_latencies, quanta, num_tags: int,
+               total_steps: int) -> dict:
+    n = lambda x: torch.as_tensor(x).numel()
+    cells = (n(quanta) // ptags.shape[1]) * ptags.shape[0] * \
+        n(slot_counts) * n(miss_latencies)
+    return cost(ptags.numel(), cells, total_steps, num_tags,
+                ptags.shape[1])
+
+
+def _cell_work(ptags, num_tags: int, total_steps: int) -> dict:
+    return cost(ptags.numel(), 1, total_steps, num_tags, ptags.shape[0],
+                cell=True)
+
+
 def window_grid(ptags, pcosts, slot_counts, miss_latencies, quanta,
                 schedule, handler, bs_miss_extra, *, num_tags: int,
                 total_steps: int, window: int, stats: list | None = None):
@@ -718,20 +752,26 @@ def window_grid(ptags, pcosts, slot_counts, miss_latencies, quanta,
     `handler` and `bs_miss_extra` are Python ints (a 0-d tensor is read
     back to the host)."""
     if ptags.device.type != "cuda":
-        return window_grid_plain(
-            ptags, pcosts, slot_counts, miss_latencies, quanta, schedule,
-            handler, bs_miss_extra, num_tags=num_tags,
-            total_steps=total_steps, window=window)
+        with _cost.kernel("window_grid", lambda: _grid_work(
+                ptags, slot_counts, miss_latencies, quanta, num_tags,
+                total_steps)):
+            return window_grid_plain(
+                ptags, pcosts, slot_counts, miss_latencies, quanta,
+                schedule, handler, bs_miss_extra, num_tags=num_tags,
+                total_steps=total_steps, window=window)
     dev = ptags.device
     nb, num_progs, _ = ptags.shape
     counts = _i32(slot_counts, dev).reshape(-1)
     lats = _i32(miss_latencies, dev).reshape(-1)
     quanta = _i32(quanta, dev)
-    out_vec, out_sca, _, _, taken = _launch(
-        ptags, pcosts, counts, lats, quanta, _i32(schedule, dev).reshape(-1),
-        None, handler=int(handler), bs_extra=int(bs_miss_extra),
-        num_tags=num_tags, total_steps=total_steps, window=window,
-        pos_base=0, materialise=False, want_tags=False, stats=stats)
+    with _cost.kernel("window_grid", lambda: _grid_work(
+            ptags, counts, lats, quanta, num_tags, total_steps)):
+        out_vec, out_sca, _, _, taken = _launch(
+            ptags, pcosts, counts, lats, quanta,
+            _i32(schedule, dev).reshape(-1), None, handler=int(handler),
+            bs_extra=int(bs_miss_extra), num_tags=num_tags,
+            total_steps=total_steps, window=window, pos_base=0,
+            materialise=False, want_tags=False, stats=stats)
     window_grid.launches += 1
     window_grid.routes[taken] += 1
     shape = (quanta.shape[0], nb, counts.shape[0], lats.shape[0])
@@ -759,11 +799,13 @@ def window_cell(ptags, pcosts, num_active, miss_latency, quanta, schedule,
     `window_cell.launches` and `window_cell.routes`; CPU tensors run
     `window_cell_plain`.  `stats` as in `window_grid`."""
     if ptags.device.type != "cuda":
-        return window_cell_plain(
-            ptags, pcosts, num_active, miss_latency, quanta, schedule,
-            handler, bs_miss_extra, seed, num_tags=num_tags,
-            total_steps=total_steps, window=window, seeded=seeded,
-            materialise=materialise)
+        with _cost.kernel("window_cell", lambda: _cell_work(
+                ptags, num_tags, total_steps)):
+            return window_cell_plain(
+                ptags, pcosts, num_active, miss_latency, quanta, schedule,
+                handler, bs_miss_extra, seed, num_tags=num_tags,
+                total_steps=total_steps, window=window, seeded=seeded,
+                materialise=materialise)
     if seeded is None:
         seeded = seed is not None
     dev = ptags.device
@@ -778,15 +820,18 @@ def window_cell(ptags, pcosts, num_active, miss_latency, quanta, schedule,
                                s_bsm)]),
                  torch.stack([_i32(x, dev).reshape(()) for x in
                               (s_sched, s_qc, s_switches)]))
-    out_vec, out_sca, out_last, out_miss, taken = _launch(
-        ptags[None].contiguous(), pcosts[None].contiguous(),
-        _i32(num_active, dev).reshape(1), _i32(miss_latency, dev).reshape(1),
-        _i32(quanta, dev).reshape(1, num_progs).contiguous(),
-        _i32(schedule, dev).reshape(-1).contiguous(), kseed,
-        handler=int(handler), bs_extra=int(bs_miss_extra),
-        num_tags=num_tags, total_steps=total_steps, window=window,
-        pos_base=num_tags if seeded else 0, materialise=materialise,
-        want_tags=True, stats=stats)
+    with _cost.kernel("window_cell", lambda: _cell_work(
+            ptags, num_tags, total_steps)):
+        out_vec, out_sca, out_last, out_miss, taken = _launch(
+            ptags[None].contiguous(), pcosts[None].contiguous(),
+            _i32(num_active, dev).reshape(1),
+            _i32(miss_latency, dev).reshape(1),
+            _i32(quanta, dev).reshape(1, num_progs).contiguous(),
+            _i32(schedule, dev).reshape(-1).contiguous(), kseed,
+            handler=int(handler), bs_extra=int(bs_miss_extra),
+            num_tags=num_tags, total_steps=total_steps, window=window,
+            pos_base=num_tags if seeded else 0, materialise=materialise,
+            want_tags=True, stats=stats)
     window_cell.launches += 1
     window_cell.routes[taken] += 1
     v, s = out_vec[0], out_sca[0]

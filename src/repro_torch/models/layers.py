@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import cost
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 
 __all__ = ["NEG_INF", "rmsnorm", "init_rmsnorm", "rope_freqs", "apply_rope",
@@ -52,9 +53,11 @@ def _device_freqs(head_dim: int, theta: float,
                   device: torch.device) -> torch.Tensor:
     """`rope_freqs` as f32 on `device`, copied there once: a copy from
     host memory waits for the device's queue to drain, and every layer
-    of every decode step needs it."""
-    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
-                           device=device)
+    of every decode step needs it.  A constant: a cost counter does not
+    count its making."""
+    with cost.uncounted():
+        return torch.as_tensor(rope_freqs(head_dim, theta),
+                               dtype=torch.float32, device=device)
 
 
 def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
@@ -87,9 +90,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 def _mrope_select(sections: tuple[int, ...],
                   device: torch.device) -> torch.Tensor:
     """Which of the three position streams drives each frequency band,
-    on `device` once."""
-    return torch.as_tensor(
-        [i for i, s in enumerate(sections) for _ in range(s)], device=device)
+    on `device` once (a constant, as `_device_freqs`)."""
+    with cost.uncounted():
+        return torch.as_tensor(
+            [i for i, s in enumerate(sections) for _ in range(s)],
+            device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,6 @@ and `moe_apply` with a mesh raises.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.expert_slots import topk_stable
 from repro_torch.kernels import moe_gmm as _gmm
@@ -81,7 +80,11 @@ def _dispatch_indices(ids: torch.Tensor, n_experts: int, capacity: int):
     """
     n, k = ids.shape
     flat = ids.reshape(-1).long()                            # (N*k,)
-    onehot = F.one_hot(flat, n_experts).to(torch.int32)
+    # `F.one_hot` without it: one_hot checks the ids on the host on the
+    # CPU and lowers differently on each device, this is the same ops
+    # everywhere (the cost counter's counts do not depend on the device)
+    onehot = (flat[:, None] == torch.arange(
+        n_experts, device=flat.device)).to(torch.int32)
     pos = torch.cumsum(onehot, 0, dtype=torch.int32) - onehot   # exclusive
     pos = torch.gather(pos, 1, flat[:, None])[:, 0]
     kept = pos < capacity

@@ -72,7 +72,12 @@ def test_every_port_module_imports_without_jax():
               "bench.window_kernel", "tree_util", "data.pipeline",
               "optim.adamw", "optim.compress", "train.step",
               "checkpoint.ckpt", "runtime.fault", "launch.train",
-              "examples.train_lm", "examples.quickstart"):
+              "examples.train_lm", "examples.quickstart", "analysis",
+              "analysis.cost", "launch.dryrun", "launch.perf",
+              "bench.roofline_table", "bench.perf_gate",
+              "examples.paper_repro", "examples.serve_models",
+              "examples.serve_multitenant", "examples.serve_online",
+              "examples.serve_faulty"):
         assert f"repro_torch.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

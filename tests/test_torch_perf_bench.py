@@ -113,8 +113,8 @@ def test_window_kernel_rows_and_record(small, monkeypatch, tmp_path):
                            "window_cell": {"bitset": 0, "generic": 0}}
     assert rows[1].startswith("window_kernel,plain,")
     assert rows[-1].startswith("# finding window kernel (plain")
-    bench_main.main(["--device", "cpu", "--only", "window_kernel",
-                     "perf_sweep", "--record"])
+    bench_main.main(["--device", "cpu", "--only", "window_kernel,perf_sweep",
+                     "--record"])
     rec = json.loads((tmp_path / "experiments" /
                       "bench_torch.json").read_text())
     assert {"backend", "device", "platform_version"} <= \
