@@ -168,13 +168,34 @@ configs at head dim 64), paper_repro's anchors held; `bench_runner` runs
 one record with the card's provenance, and `perf_gate` over it (the
 record against itself passes, a copy with one entry 2x slower fails).
 
+The mesh slice (`repro_torch.launch.mesh`, `repro_torch.sharding` and
+the sharded paths), each phase one job of the card's ranks
+(`mesh.card_world()`: 2 ranks sharing one card over gloo, collectives
+staged through host copies; NCCL with one rank a card, up to 4, on a
+machine of several), its kernel launches counted in the ranks from 0:
+`mesh_serve` (arctic's weights drawn once in the parent, which reach
+the ranks by CUDA IPC: no rank copies them) serves arctic-480b at full width
+(2 layers, 128 experts) through `model_batcher` under
+`ShardingPlan(mode="decode")` on a (data 1, model R) mesh, each rank its
+experts and its block of each cache, against the same requests on one
+rank: request 0's prefill logits within DEEP_BF16_REL, its first MoE
+layer's expert load equal, every rank's tokens equal, the sharded decode
+launching no decode kernel (the reference's einsum body), the share of
+decode tokens equal to one rank's printed; `mesh_fleet` runs fig7's grid
+and the P=4 fleet sweep with the fleet axis sharded over the ranks, the
+rows' sha1s the one-rank phases'; `mesh_compress` holds
+`cross_pod_mean_tree` over the ranks as pods, on one granite-3-2b
+layer's gradient shapes, bit-equal to the leading-dimension form.  Each
+prints its world, backend, seconds and per-rank peak memory; a rank that
+fails or outlives the phase's deadline fails the run.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last three lines are the card's `nvidia-smi` name and power limit,
 the `kernels` line (all eight kernels: launches on their slice's main
 path, the window rows' with the sched, model_serve_study and perf_sweep
 phases' added and split in `launches_by_slice`; times, bound, error; the
 four training kernels' `train_launches` and `train_backward_recomputes`
-on granite's training run; the substrate slice's launches in
+on granite's training run; the substrate and mesh slices' launches in
 `launches_by_slice`) and `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the port's sources beside it, the script exits
@@ -184,6 +205,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import multiprocessing
@@ -4176,6 +4198,272 @@ def phase_substrate(dev, card: str, train: dict, sweep) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the mesh slice: the multi-device paths over ranks (torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT_S = 420.0     # a phase's job, its ranks' start-up included
+MESH_KERNELS = ("window_grid", "flash_attention", "moe_gmm", "moe_gmm_skip")
+# mesh_serve: arctic-480b-2l (full width, all 128 experts) through
+# `model_batcher` on a (data 1, model R) mesh, as `moe_serve`'s requests
+MESH_SERVE = dict(num_requests=8, batch=8, max_len=2048, new_tokens=32,
+                  prompt_len=(100, 1500))
+COMPRESS_ROUNDS = 3        # error-feedback rounds of mesh_compress
+
+
+def _rank_device() -> torch.device:
+    """A rank's card: its own over NCCL, the shared one over gloo."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _rank_report(t0: float, **fields) -> dict:
+    torch.cuda.synchronize()
+    return dict(fields, seconds=round(time.perf_counter() - t0, 3),
+                peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+
+
+def _spawn(body, args: tuple = ()) -> tuple[list, int, str, float]:
+    """`body(*args)` on the card's ranks: (their reports, world, backend,
+    wall seconds)."""
+    from repro_torch.launch import mesh
+    world, backend = mesh.card_world()
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(body, world, args, backend=backend,
+                       timeout=MESH_TIMEOUT_S)
+    return ranks, world, backend, round(time.perf_counter() - t0, 3)
+
+
+def _per_rank(ranks: list, keys=("seconds", "peak_gb")) -> list:
+    return [{k: r[k] for k in keys} for r in ranks]
+
+
+def mesh_fleet_rank() -> dict:
+    """One rank of `mesh_fleet`: fig7's grid and the P=4 fleet sweep with
+    the fleet axis sharded over the ranks; the rows' sha1s, the window
+    launches and the fleets each window pass of this rank swept."""
+    from repro_torch.bench import fig7_multi
+    from repro_torch.core import scheduler, simulator, stackdist_interleaved
+    from repro_torch.kernels import window_distance as wd
+    dev = _rank_device()
+    blocks, inner = [], stackdist_interleaved.sweep_preempted
+
+    def spy(fleets, *a, **kw):
+        blocks.append(int(fleets.shape[0]))
+        return inner(fleets, *a, **kw)
+
+    stackdist_interleaved.sweep_preempted = spy
+    wd.window_grid.launches = 0
+    wd.window_grid.routes = dict.fromkeys(wd.ROUTES, 0)
+    t0 = time.perf_counter()
+    pairs = scheduler.make_pairs()
+    res = fig7_multi.sweep(pairs, device=dev)
+    fig7_rows, _ = fig7_multi.run(pairs, device=dev, res=res)
+    fres = fig7_multi.sweep_fleets(device=dev)
+    fleet_rows, _ = fig7_multi.run_fleets(device=dev, res=fres)
+    return _rank_report(
+        t0, ranks=simulator.fleet_mesh_size(), fig7=sha(fig7_rows),
+        fleet_sweep=sha(fleet_rows), blocks=blocks,
+        launches=wd.window_grid.launches, routes=dict(wd.window_grid.routes))
+
+
+def phase_mesh_fleet(card: str) -> dict:
+    """fig7's grid (300 cells of 160,000 steps) and the P=4 fleet sweep
+    with the fleet axis sharded over the card's ranks: the rows' sha1s
+    must be the one-rank phases' (the JAX package's)."""
+    ranks, world, backend, secs = _spawn(mesh_fleet_rank)
+    for i, r in enumerate(ranks):
+        check(r["ranks"] == world, f"mesh_fleet rank {i} sharded over "
+                                   f"{r['ranks']} ranks, not {world}")
+        check(r["fig7"] == EXPECTED_ROWS["fig7"],
+              f"mesh_fleet rank {i}: fig7 rows differ from one rank's")
+        check(r["fleet_sweep"] == EXPECTED_ROWS["fleet_sweep"],
+              f"mesh_fleet rank {i}: fleet rows differ from one rank's")
+        check(r["launches"] > 0 and r["routes"] == {
+            "bitset": r["launches"], "generic": 0},
+            f"mesh_fleet rank {i}: window launches {r['routes']}")
+        check(r["blocks"] == ranks[0]["blocks"],
+              f"mesh_fleet rank {i} swept blocks {r['blocks']}, rank 0 "
+              f"{ranks[0]['blocks']}")
+    launches = sum(r["launches"] for r in ranks)
+    emit("mesh_fleet", world=world, backend=backend, seconds=secs,
+         rows_match_one_rank=True, fleets_a_rank=ranks[0]["blocks"],
+         window_grid_launches=launches, ranks=_per_rank(ranks),
+         nvidia_smi=card)
+    return {"window_grid": launches}
+
+
+def _serve_once(cfg, params, dev, plan=None) -> dict:
+    """Request 0's prefill logits and first MoE layer's expert load, then
+    MESH_SERVE's requests served through `model_batcher` (under `plan`):
+    the logits, the load, every request's tokens, the batcher's report and
+    the serving seconds."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import model_batcher
+    reqs = serve.requests(cfg, MESH_SERVE["num_requests"],
+                          MESH_SERVE["new_tokens"],
+                          MESH_SERVE["prompt_len"], 0)
+    with torch.no_grad():
+        logits, _, aux = transformer.prefill(
+            cfg, params, {"tokens": reqs[0].prompt[None]}, shd=plan)
+    load = aux[0][0]["expert_load"][0]
+    batcher = model_batcher(cfg, params, MESH_SERVE["batch"],
+                            MESH_SERVE["max_len"], shd=plan, device=dev)
+    for r in reqs:
+        batcher.submit(r)
+    t0 = time.perf_counter()
+    report = batcher.run_until_drained()
+    torch.cuda.synchronize()
+    return {"logits": logits.float().cpu(), "load": load.cpu(),
+            "tokens": [list(r.generated) for r in reqs], "report": report,
+            "serve_s": round(time.perf_counter() - t0, 3)}
+
+
+def mesh_serve_rank(cfg, shared: list) -> dict:
+    """One rank of `mesh_serve`: its experts of the weights in `shared`
+    (through CUDA IPC on the shared card: views, no copy; over NCCL its
+    slice copied to its own card), `_serve_once` under the plan, its
+    kernels' launches.  The weights are popped from `shared` and dropped
+    before the rank returns, so the parent gets their memory back."""
+    params = shared.pop()
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import ShardingPlan
+    from repro_torch.tree_util import tree_map
+    dev = _rank_device()
+    plan = ShardingPlan(mesh.Mesh({"data": 1, "model": mesh.world()[0]}),
+                        cfg, mode="decode")
+    local = plan.shard_params(params)
+    if plan.mesh.backend == "nccl":
+        local = tree_map(lambda t: t.to(dev), local)
+    fns = {"flash_attention": fa.flash_attention, "moe_gmm": gmm.moe_gmm,
+           "moe_gmm_skip": gmm.moe_gmm_skip,
+           "decode_attention": da.decode_attention}
+    for fn in fns.values():
+        fn.launches = 0
+    for fn in (gmm.moe_gmm, gmm.moe_gmm_skip):
+        fn.routes = dict.fromkeys(fn.routes, 0)
+    t0 = time.perf_counter()
+    out = _serve_once(cfg, local, dev, plan)
+    e_local = int(local["segments"][0][0]["moe"]["wi"].shape[1])
+    del params, local
+    gc.collect()
+    return _rank_report(
+        t0, **out, launches={k: fn.launches for k, fn in fns.items()},
+        routes={k: dict(fns[k].routes) for k in ("moe_gmm",
+                                                 "moe_gmm_skip")},
+        experts=[plan.mesh.axis_index("model") * e_local, e_local])
+
+
+def phase_mesh_serve(dev, card: str) -> dict:
+    """arctic-480b-2l (full width, all 128 experts; its weights drawn here
+    once, seed 0) served through `model_batcher` under the port's
+    `ShardingPlan(mode="decode")` on a (data 1, model R) mesh, each rank
+    holding its experts; against the same requests on one rank (here):
+    request 0's prefill logits within DEEP_BF16_REL, its first MoE layer's
+    expert load equal; the share of decode tokens equal is printed, not
+    gated (bf16 argmax ties on random weights)."""
+    from repro_torch.models import transformer
+    cfg = register_arctic_2l()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    one = _serve_once(cfg, params, dev)
+    torch.cuda.empty_cache()
+    ranks, world, backend, secs = _spawn(mesh_serve_rank, (cfg, [params]))
+    del params
+    torch.cuda.ipc_collect()          # blocks the ranks have released
+    torch.cuda.empty_cache()
+    left_gb = round(torch.cuda.memory_allocated() / 1e9, 3)
+    n = MESH_SERVE["num_requests"]
+    rels, shares = [], []
+    for i, r in enumerate(ranks):
+        rel = _rel(r["logits"], one["logits"])
+        rels.append(rel)
+        check(rel <= DEEP_BF16_REL, f"mesh_serve rank {i}: prefill logits "
+                                    f"{rel} from one rank's, > "
+                                    f"{DEEP_BF16_REL}")
+        check(torch.equal(r["load"], one["load"]),
+              f"mesh_serve rank {i}: expert load differs from one rank's")
+        check(r["report"]["finished"] == n, f"mesh_serve rank {i} served "
+                                            f"{r['report']['finished']}")
+        for name in ("flash_attention", "moe_gmm", "moe_gmm_skip"):
+            check(r["launches"][name] > 0, f"mesh_serve rank {i} launched "
+                                           f"no {name}")
+        check(r["launches"]["decode_attention"] == 0,
+              f"mesh_serve rank {i}: the sharded decode launched the "
+              f"decode kernel")
+        for name, by_route in r["routes"].items():
+            check(by_route == {"mma": r["launches"][name], "fma": 0},
+                  f"mesh_serve rank {i}: {name} routes {by_route}")
+        check(r["tokens"] == ranks[0]["tokens"],
+              f"mesh_serve rank {i}'s tokens differ from rank 0's")
+        pairs = [(a, b) for got, want in zip(r["tokens"], one["tokens"])
+                 for a, b in zip(got, want)]
+        shares.append(sum(a == b for a, b in pairs) / max(len(pairs), 1))
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("flash_attention", "moe_gmm", "moe_gmm_skip")}
+    emit("mesh_serve", arch=cfg.name, world=world, backend=backend,
+         mesh={"data": 1, "model": world}, seconds=secs,
+         experts_a_rank=[r["experts"] for r in ranks],
+         prefill_rel_l2=rels, expert_load_equal=True,
+         decode_tokens_equal_share=shares, one_rank_serve_s=one["serve_s"],
+         serve_s=[r["serve_s"] for r in ranks], launches=launches,
+         ranks=_per_rank(ranks), parent_gb_after=left_gb, nvidia_smi=card)
+    return launches
+
+
+def mesh_compress_rank(rounds: int) -> dict:
+    """One rank of `mesh_compress` (its pod): one granite-3-2b layer's
+    gradient shapes, f32, drawn alike on every rank with a leading pod
+    dimension; `cross_pod_mean_tree` over the ranks on this pod's block
+    against the leading-dimension form, means and residuals, each round."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim import compress
+    from repro_torch.tree_util import leaves_with_paths
+    cb.load_all()
+    dev = _rank_device()
+    m = mesh.Mesh({"pod": mesh.world()[0]})
+    n, i = m.axis_size("pod"), m.axis_index("pod")
+    layer = transformer.init_params(cb.get_config(GRANITE),
+                                    torch.Generator(), "meta")
+    shapes = {"/".join(map(str, path)): tuple(leaf.shape[1:])
+              for path, leaf in leaves_with_paths(layer["segments"][0][0])}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = {k: torch.randn((n, *s), generator=gen, device=dev)
+            for k, s in sorted(shapes.items())}
+    mine = {k: v[i:i + 1] for k, v in full.items()}
+    t0 = time.perf_counter()
+    ef_m = ef_f = None
+    equal = True
+    for _ in range(rounds):
+        mean_m, ef_m = compress.cross_pod_mean_tree(mine, ef_m, m)
+        mean_f, ef_f = compress.cross_pod_mean_tree(full, ef_f)
+        for k in full:
+            equal &= torch.equal(mean_m[k], mean_f[k][i:i + 1])
+            equal &= torch.equal(ef_m[k], ef_f[k][i:i + 1])
+    return _rank_report(t0, equal=bool(equal), leaves=len(full),
+                        elements=sum(v[0].numel() for v in full.values()))
+
+
+def phase_mesh_compress(card: str) -> None:
+    """`cross_pod_mean_tree` with the card's ranks as pods on one
+    granite-3-2b layer's gradient shapes: bit-equal to the
+    leading-dimension form, means and residuals, every round."""
+    ranks, world, backend, secs = _spawn(mesh_compress_rank,
+                                         (COMPRESS_ROUNDS,))
+    for i, r in enumerate(ranks):
+        check(r["equal"], f"mesh_compress rank {i}: the mean over ranks "
+                          f"differs from the leading-dimension form")
+    emit("mesh_compress", world=world, backend=backend, seconds=secs,
+         rounds=COMPRESS_ROUNDS, leaves=ranks[0]["leaves"],
+         elements_a_pod=ranks[0]["elements"], bit_equal=True,
+         ranks=_per_rank(ranks), nvidia_smi=card)
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4379,6 +4667,19 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
                                   {"model slices": row["launches"]})
         by_slice["substrate"] = substrate[row["name"]]
         row["launches"] += substrate[row["name"]]
+    torch.cuda.empty_cache()
+
+    # the mesh slice: the multi-device paths over the card's ranks, their
+    # launches counted in the ranks, from 0
+    mesh_launches = phase_mesh_serve(dev, card)
+    mesh_launches.update(phase_mesh_fleet(card))
+    phase_mesh_compress(card)
+    for row in kernels:
+        if row["name"] in MESH_KERNELS:
+            n = mesh_launches[row["name"]]
+            check(n > 0, f"{row['name']} was not launched on the mesh slice")
+            row["launches_by_slice"]["mesh"] = n
+            row["launches"] += n
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,9 +34,13 @@ is float32, so every anchor derived from the port prints the reference's
 digits.  `scan_unroll` stays in the signatures for parity with the
 reference and is inert (there is no compiled scan to unroll).
 
-The reference's mesh code (`_fleet_mesh`, `_mesh_sweep_preempted`) shards
-the interleaved sweep's fleet axis across devices; it has no meaning on
-one card, so `fleet_mesh_size()` is 1 and the sweep never shards.
+Under a `torch.distributed` job of two or more ranks the interleaved
+sweep shards its fleet axis over them, as the reference's `_fleet_mesh` /
+`_mesh_sweep_preempted` shard it over devices: every rank calls the sweep
+with the same inputs, runs the window pass on its block of the padded
+chunk (the kernel, on its card) and all-gathers the blocks, so the result
+is the one-rank call's bit for bit.  Without a process group, or in a
+world of one, `fleet_mesh_size()` is 1 and nothing shards.
 """
 from __future__ import annotations
 
@@ -443,10 +447,42 @@ def fleet_tag_table(scenarios, num_programs: int) -> np.ndarray:
     return np.stack([s.instr_tag for s in scenarios])
 
 
+def _fleet_mesh():
+    """A 1-D mesh over the fleet axis spanning every rank of the job, or
+    None without one (the mesh path must be a no-op there: every anchor
+    is recorded on one rank and stays byte-identical)."""
+    from repro_torch.launch import mesh
+    n, _ = mesh.world()
+    if n <= 1:
+        return None
+    return mesh.Mesh({"fleet": n})
+
+
 def fleet_mesh_size() -> int:
-    """Devices the interleaved sweep shards its fleet axis over: always 1
-    (the reference's device mesh has no counterpart on one card)."""
-    return 1
+    """Ranks the interleaved sweep shards its fleet axis over (1 without a
+    process group).  Batch-building callers (the contention model's
+    candidate-group sweeps) round their batch shapes to a multiple of
+    this so every shard is full and the padded shape is reused."""
+    from repro_torch.launch import mesh
+    return mesh.world()[0]
+
+
+def _mesh_sweep_preempted(mesh, part, table, counts, lats, quanta_grid,
+                          schedule, handler, bs_miss_extra, num_tags: int,
+                          total_steps: int, w: int, use_kernel):
+    """Each rank runs the interleaved sweep over its block of the fleet
+    axis of one padded chunk; the blocks are all-gathered along it, so
+    this is bit-identical to the one-rank call on the same chunk."""
+    dev = part.device
+    n = mesh.axis_size("fleet")
+    blk = part.shape[0] // n
+    i = mesh.axis_index("fleet")
+    grid = stackdist_interleaved.sweep_preempted(
+        part[i * blk:(i + 1) * blk], table, isa.INSTR_HW_CYCLES, counts,
+        lats, _i32(quanta_grid, dev), _i32(schedule, dev), int(handler),
+        int(bs_miss_extra), num_tags=num_tags, total_steps=total_steps,
+        window=w, use_kernel=use_kernel)
+    return type(grid)(*(mesh.all_gather(x, "fleet", dim=1) for x in grid))
 
 
 # ---------------------------------------------------------------------------
@@ -704,13 +740,14 @@ def _lane_state(state: FleetState, lane: int) -> FleetState:
 def _scan_lanes(ptags: torch.Tensor, pcosts: torch.Tensor,
                 lane_fleet: torch.Tensor, miss_latency: torch.Tensor,
                 active_slots: torch.Tensor, quanta: torch.Tensor,
-                schedule: torch.Tensor, handler: int, bs_miss_extra: int,
+                schedule: torch.Tensor, handler: int, bs_miss_extra,
                 state: FleetState, total_steps: int) -> FleetState:
     """Step every lane's round-robin machine `total_steps` accesses.
 
     `ptags`/`pcosts` are the (B, P, N) pre-gathered streams, `lane_fleet`
     (lanes,) picks each lane's fleet, `miss_latency`/`active_slots`
-    (lanes,) and `quanta` (lanes, P) are the lanes' coordinates, `state` a
+    (lanes,) and `quanta` (lanes, P) are the lanes' coordinates (and
+    `bs_miss_extra`, an int or a (lanes,) tensor), `state` a
     FleetState with a leading lane axis.  Mirrors the reference's
     `_fleet_step_fn` (the access pays its hw cost, a slot miss its latency,
     a bitstream miss its penalty; the expiring access's program pays the
@@ -1175,13 +1212,17 @@ def _sweep_fleet_interleaved(fleets, table, lats, counts, quanta_grid,
 
     The fleet axis goes in memory-bounded chunks, each padded up to a
     multiple of `_INTERLEAVED_BATCH_BUCKET` fleets (replays of the chunk's
-    first fleet, sliced off the result), as in the reference."""
+    first fleet, sliced off the result), as in the reference; under a
+    job of several ranks the padding rounds up to the rank count and
+    each chunk's fleet axis shards over them (`_mesh_sweep_preempted`)."""
     dev = fleets.device
     num_tags = max(int(np.max(table)) + 1, 1)
     w = _interleaved_window(quanta_grid, total_steps, window, dev)
     cells = quanta_grid.shape[0] * counts.shape[0] * lats.shape[0]
     chunk = max(1, _INTERLEAVED_CHUNK_ELEMS // max(w * num_tags * cells, 1))
     b_total = fleets.shape[0]
+    mesh = _fleet_mesh()
+    ndev = mesh.size if mesh is not None else 1
     grids = []
     for i in range(0, b_total, chunk):
         part = fleets[i:i + chunk]
@@ -1190,10 +1231,17 @@ def _sweep_fleet_interleaved(fleets, table, lats, counts, quanta_grid,
         else:
             target = min(-(-b_total // _INTERLEAVED_BATCH_BUCKET)
                          * _INTERLEAVED_BATCH_BUCKET, chunk)
+        target = -(-target // ndev) * ndev   # mesh: divisible fleet shards
         pad = target - part.shape[0]
         if pad > 0:
             part = torch.cat([part, part[:1].expand(
                 (pad,) + tuple(part.shape[1:]))], dim=0)
+        if mesh is not None:
+            grids.append(_mesh_sweep_preempted(
+                mesh, part, table, counts, lats, quanta_grid, schedule,
+                handler, bs_miss_extra, num_tags, total_steps, w,
+                use_kernel))
+            continue
         grids.append(stackdist_interleaved.sweep_preempted(
             part, table, isa.INSTR_HW_CYCLES, counts, lats,
             _i32(quanta_grid, dev), _i32(schedule, dev), int(handler),
@@ -1299,7 +1347,8 @@ def sweep_bitstream(traces, scenario: isa.SlotScenario, *, slot_counts,
     capacity x bitstream penalty}: (B, N) traces -> `ColdGrid` with
     (B, K, L, E, X) cycles, (B, K) slot misses and (B, K, E) bitstream
     misses.  Eligible runs take the stacked Mattson pass; `path="scan"`
-    runs the reference machine once per cell (the parity reference)."""
+    runs the reference machine (the parity reference), one step loop a
+    bitstream capacity with every other cell a lane of it."""
     dev = _device(device)
     traces = _i32(traces, dev)
     if traces.dim() != 2:
@@ -1327,34 +1376,33 @@ def sweep_bitstream(traces, scenario: isa.SlotScenario, *, slot_counts,
             traces, scenario.instr_tag, isa.INSTR_HW_CYCLES, counts, lats,
             caps, extras, num_tags=max(scenario.num_tags, 1),
             total_steps=total_steps)
-    # reference fallback: one scan per cell (slot/bitstream misses do not
-    # depend on the latency/penalty axes in an unpreempted run)
+    # the reference machine: each capacity's (trace, slot count, latency,
+    # penalty) cells are the lanes of one step loop (slot counts mask a
+    # disambiguator of the largest count; slot and bitstream misses do
+    # not depend on the latency/penalty axes in an unpreempted run)
     b = traces.shape[0]
-    shape = (b, counts.size, lats.size, caps.size, extras.size)
-    cycles = np.zeros(shape, np.int32)
-    slot_misses = np.zeros(shape[:2], np.int32)
-    bs_misses = np.zeros((b, counts.size, caps.size), np.int32)
-    idx = torch.remainder(torch.arange(total_steps, device=dev),
-                          traces.shape[-1])
-    for i in range(b):
-        stream = traces[i][idx]
-        for k, s in enumerate(counts):
-            for e, cap in enumerate(caps):
-                for l, lat in enumerate(lats):
-                    for x, pen in enumerate(extras):
-                        r = simulate_single(
-                            stream,
-                            ReconfigConfig(num_slots=int(s),
-                                           miss_latency=int(lat),
-                                           bs_cache_entries=int(cap),
-                                           bs_miss_extra=int(pen)),
-                            scenario, path="scan", device=dev)
-                        cycles[i, k, l, e, x] = int(r.cycles)
-                        slot_misses[i, k] = int(r.slot_misses)
-                        bs_misses[i, k, e] = int(r.bs_misses)
-    return stackdist_cold.ColdGrid(cycles=_i32(cycles, dev),
-                                   slot_misses=_i32(slot_misses, dev),
-                                   bs_misses=_i32(bs_misses, dev))
+    ptags, pcosts = _gather(traces[:, None, :], scenario.instr_tag[None, :])
+    shape = (b, counts.size, lats.size, extras.size)
+    bi, ki, li, xi = (x.reshape(-1) for x in torch.meshgrid(
+        *(torch.arange(n, device=dev) for n in shape), indexing="ij"))
+    lanes = bi.shape[0]
+    c, l, x = (_i32(a, dev) for a in (counts, lats, extras))
+    cycles, slot_misses, bs_misses = [], None, []
+    for cap in caps:
+        final = _scan_lanes(
+            ptags, pcosts, bi, l[li], c[ki],
+            torch.full((lanes, 1), NO_PREEMPT_QUANTUM, dtype=torch.int32,
+                       device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev), 0, x[xi],
+            _init_lanes(lanes, 1, int(counts.max()), int(cap), dev),
+            total_steps)
+        cycles.append(final.cycles[:, 0].reshape(shape))
+        # every (latency, penalty) lane of a (trace, slot count) agrees
+        slot_misses = final.misses[:, 0].reshape(shape)[:, :, 0, 0]
+        bs_misses.append(final.bs_misses[:, 0].reshape(shape)[:, :, 0, 0])
+    return stackdist_cold.ColdGrid(
+        cycles=torch.stack(cycles, dim=3),            # (B, K, L, E, X)
+        slot_misses=slot_misses, bs_misses=torch.stack(bs_misses, dim=2))
 
 
 # --- pair path: the P=2 special case

@@ -24,6 +24,13 @@ library named by the sha1 of the source, its local headers and the flags
 and `library` loads it with `ctypes`.  A source that needs flags of its
 own beyond `NVCC_FLAGS` names them on a line `// nvcc-flags: ...`.  Nothing here runs at import: the
 CPU has no `nvcc`, and the CPU tests import every module.
+
+Every wrapper's `_launch` runs under `on_tensor_device`: a ctypes entry
+point launches on the *current* device and sets its kernel's attributes
+there (`cudaFuncSetAttribute`), while its stream comes from the tensor's
+device, so the launch makes the first tensor's card current for its
+span.  With one card per rank, or a tensor on another card than the
+current one, the kernel runs where its operands lie.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ import torch
 from repro_torch.analysis import cost
 
 __all__ = ["resolve", "route", "stand_in", "with_plain_vjp", "no_vjp",
-           "KernelVjp", "build", "library", "ptxas_report",
+           "KernelVjp", "on_tensor_device", "build", "library",
+           "ptxas_report",
            "BUILD_DIR", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -50,6 +58,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _LIBS: dict[str, ctypes.CDLL] = {}
 _REPORTS: dict[str, str] = {}
+
+
+def on_tensor_device(launch):
+    """`launch(x, ...)` run with `x`'s card as the current device."""
+    @functools.wraps(launch)
+    def guarded(x, *args, **kwargs):
+        with torch.cuda.device(x.device):
+            return launch(x, *args, **kwargs)
+    return guarded
 
 
 def resolve(use_kernel, device: torch.device) -> bool:

@@ -177,6 +177,7 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor,
                          f"16-byte aligned rows (strides {t.stride()})")
 
 
+@common.on_tensor_device
 def _launch(q, k_cache, v_cache, kv_len) -> torch.Tensor:
     """Check the operands, allocate the output and launch the kernel on
     the current stream."""

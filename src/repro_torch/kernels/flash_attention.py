@@ -174,6 +174,7 @@ def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
                          f"16-byte aligned rows (strides {t.stride()})")
 
 
+@common.on_tensor_device
 def _launch(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
     """Check the operands, allocate the output and launch the kernel on
     the current stream."""

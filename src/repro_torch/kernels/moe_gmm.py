@@ -164,6 +164,7 @@ def _check(x, wg, wi, wo, counts, gated: bool) -> None:
 ROUTES = ("mma", "fma")
 
 
+@common.on_tensor_device
 def _launch(x, wg, wi, wo, counts, gated: bool) -> tuple[torch.Tensor, str]:
     """Check the operands, allocate h and the output and launch both
     stages on the current stream; the output and the route taken."""

@@ -165,6 +165,7 @@ def _declare(lib) -> None:
     lib.rglru_chunked_scratch_bytes.restype = cl
 
 
+@common.on_tensor_device
 def _launch(u, params, h0):
     """Check the operands, allocate h, h_last and the chunked route's
     scratch and launch the kernel on the current stream; (h, h_last) and

@@ -203,6 +203,7 @@ def _check(r, k, v, logw, u, s0) -> None:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+@common.on_tensor_device
 def _launch(r, k, v, logw, u, s0):
     """Check the operands, allocate o, the final state and the chunked
     route's scratch and launch the kernel on the current stream; (o, S_T)

@@ -635,6 +635,7 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
+@common.on_tensor_device
 def _launch(ptags, pcosts, counts, lats, quanta, schedule, seed, *,
             handler: int, bs_extra: int, num_tags: int, total_steps: int,
             window: int, pos_base: int, materialise: bool,

@@ -20,8 +20,14 @@ Unlike the JAX package, the write is in place: a decode step updates the
 cache it is given (the serving batch's cache is the whole KV state of
 every row, rewritten one token at a time).
 
-Not here: the sequence-sharded flash-decode (`decode_attention_sharded`,
-a TPU-mesh `shard_map` with a psum combine) has no meaning on one card.
+Over a mesh (`decode_attention(..., mesh=...)`), the full cache is
+sharded batch -> data axes, sequence -> `model`, and one decode step
+runs the reference's flash-decode combine (`decode_attention_sharded`):
+the rank whose sequence block holds a row's position writes the token,
+every rank computes its block's partial statistics (m, l, o) in f32, and
+the blocks merge by one max and two sums over `model`: the collective is
+O(B H dh), never O(S).  It is the reference's einsum body in plain
+torch (the reference runs no kernel there either).
 """
 from __future__ import annotations
 
@@ -30,7 +36,10 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 
 __all__ = ["init_full_cache", "init_window_cache", "decode_attention_local",
-           "decode_attention", "window_decode_attention"]
+           "decode_attention_sharded", "decode_attention",
+           "window_decode_attention"]
+
+NEG_INF = -1e30
 
 
 def init_full_cache(cfg, batch: int, length: int, device="cuda"):
@@ -72,14 +81,55 @@ def decode_attention_local(q, cache, k_new, v_new, pos, cfg,
     return o.reshape(b, 1, h, dh), {"k": ck, "v": cv}
 
 
+def decode_attention_sharded(q, cache, k_new, v_new, pos, cfg, mesh,
+                             data_axes=("data",), model_axis="model"):
+    """The sequence-sharded flash-decode on this rank's blocks: q, k_new,
+    v_new (B_loc, 1, ...) and pos (B_loc,) are its rows of the batch
+    (split over `data_axes`), cache k/v (B_loc, S_loc, K, dh) its block of
+    the (B, S) cache (sequence split over `model_axis`).  Writes the
+    token into the block that holds `pos`, in place, and returns (this
+    rank's rows of the output (B_loc, 1, H, dh), the cache)."""
+    b, _, h, dh = q.shape
+    kh = cfg.num_kv_heads
+    g = h // kh
+    ck, cv = cache["k"], cache["v"]
+    s_loc = ck.shape[1]
+    lo = mesh.axis_index(model_axis) * s_loc
+    # the token goes where its position lies, outside the combine
+    local = (pos.long() - lo).to(pos.dtype)
+    _write_slot(ck, k_new[:, 0], local)
+    _write_slot(cv, v_new[:, 0], local)
+    qr = (q[:, 0].reshape(b, kh, g, dh) * dh ** -0.5).float()
+    sc = torch.einsum("bkgd,bskd->bkgs", qr, ck.float())
+    valid = (lo + torch.arange(s_loc, device=q.device))[None, :] \
+        <= pos.long()[:, None]
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    # partial flash statistics + logsumexp-weighted combine
+    m_loc = sc.amax(-1)                                      # (B,K,G)
+    p = torch.exp(sc - m_loc[..., None])
+    l_loc = p.sum(-1)
+    o_loc = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
+    m_glob = mesh.all_reduce(m_loc, model_axis, "max")
+    corr = torch.exp(m_loc - m_glob)
+    l_glob = mesh.all_reduce(l_loc * corr, model_axis)
+    o_glob = mesh.all_reduce(o_loc * corr[..., None], model_axis)
+    o = o_glob / torch.clamp(l_glob[..., None], min=1e-30)
+    return o.reshape(b, 1, h, dh).to(q.dtype), {"k": ck, "v": cv}
+
+
 def decode_attention(q, cache, k_new, v_new, pos, cfg, mesh=None,
-                     use_kernel=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sequence-sharded decode attention is TPU-mesh code with no "
-            "counterpart on one card; pass mesh=None")
-    return decode_attention_local(q, cache, k_new, v_new, pos, cfg,
-                                  use_kernel)
+                     use_kernel=None, data_axes=("data",)):
+    """`decode_attention_local` (the decode kernel on the card), or over
+    `mesh` (a `launch.mesh.Mesh`) `decode_attention_sharded`."""
+    if mesh is None:
+        return decode_attention_local(q, cache, k_new, v_new, pos, cfg,
+                                      use_kernel)
+    from repro_torch.launch.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh or "
+                        f"None, not {type(mesh).__name__}")
+    return decode_attention_sharded(q, cache, k_new, v_new, pos, cfg, mesh,
+                                    data_axes)
 
 
 def window_decode_attention(q, cache, k_new, v_new, pos, cfg,

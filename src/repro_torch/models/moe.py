@@ -16,9 +16,15 @@ The paper hook: the per-layer expert load vector (`aux["expert_load"]`)
 is the opcode-access set of `repro_torch.core.expert_slots`; the serving
 engine feeds it to the disambiguator to track slot residency and fills.
 
-Not here: the expert-parallel path (`moe_apply_sharded`, a TPU-mesh
-`shard_map` with `MOE_TOKEN_CHUNK` chunking) has no meaning on one card,
-and `moe_apply` with a mesh raises.
+Over a mesh (`moe_apply(..., mesh=...)`), the expert-parallel path
+(`moe_apply_sharded`): the experts are split over `model`, each rank
+holding experts [e_lo, e_lo + e_local) and running the grouped FFN on
+them alone; the activations are replicated over `model` and split over
+the data axes on batch, so dispatch needs no all-to-all: each rank
+gathers the tokens routed to its experts, and the ranks' partial outputs
+are summed over `model`, the expert loads over the data axes.  Tokens go
+in chunks of `MOE_TOKEN_CHUNK` where that divides them, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -27,7 +33,11 @@ import torch
 from repro_torch.core.expert_slots import topk_stable
 from repro_torch.kernels import moe_gmm as _gmm
 
-__all__ = ["init_moe", "route", "moe_apply_dense", "moe_apply"]
+__all__ = ["init_moe", "route", "moe_apply_dense", "moe_apply_sharded",
+           "moe_apply", "MOE_TOKEN_CHUNK"]
+
+# the reference's: tokens a dispatch chunk of the expert-parallel path
+MOE_TOKEN_CHUNK = 16_384
 
 
 def init_moe(gen: torch.Generator, cfg, layers: int, device="cuda"):
@@ -110,35 +120,43 @@ def _expert_ffn(buf, wi, wg, wo, cfg, counts=None, use_kernel=None):
 
 
 def _gather_compute_scatter(x2d, ids, gates, pos, kept, wi, wg, wo, cfg,
-                            capacity: int, counts=None, use_kernel=None):
-    """Dispatch the kept assignments into the experts' capacity buffers,
-    run the expert FFN and return the gated sum (N, D).
+                            e_lo: int, e_local: int, capacity: int,
+                            counts=None, use_kernel=None):
+    """Dispatch the kept assignments to experts [e_lo, e_lo + e_local)
+    into their capacity buffers, run their FFN and return this shard's
+    gated sum (N, D).
 
-    The JAX package scatter-adds every assignment, the dropped ones as
-    zeros at (0, 0); here only the kept rows are written, whose (expert,
+    The JAX package scatter-adds every assignment, the others as zeros at
+    (0, 0); here only this shard's kept rows are written, whose (expert,
     position) pairs are unique, which gives the same buffer with no
-    accumulation.  The dropped ones go to one spare row past the buffer,
-    so the layer never waits on the host for a count.  (The JAX
-    function's `e_lo`/`e_local` select one shard's experts under the
-    expert-parallel mesh; one card holds them all.)"""
+    accumulation.  The others go to one spare row past the buffer, so the
+    layer never waits on the host for a count.  `counts` (e_local,)
+    selects `moe_gmm_skip`."""
     n, d = x2d.shape
-    e, k = cfg.num_experts, ids.shape[1]
-    e_loc = torch.where(kept, ids, 0).reshape(-1)
-    p_loc = torch.where(kept, pos, 0).reshape(-1)
-    w = kept.to(x2d.dtype)
+    k = ids.shape[1]
+    local = (ids >= e_lo) & (ids < e_lo + e_local) & kept    # (N, k)
+    e_loc = torch.where(local, ids - e_lo, 0).reshape(-1)
+    p_loc = torch.where(local, pos, 0).reshape(-1)
+    w = local.to(x2d.dtype)
 
-    flat = torch.zeros((e * capacity + 1, d), dtype=x2d.dtype,
+    flat = torch.zeros((e_local * capacity + 1, d), dtype=x2d.dtype,
                        device=x2d.device)
-    slot = torch.where(kept.reshape(-1), e_loc * capacity + p_loc,
-                       e * capacity)
+    slot = torch.where(local.reshape(-1), e_loc * capacity + p_loc,
+                       e_local * capacity)
     flat[slot] = x2d.repeat_interleave(k, dim=0)
-    buf = flat[:-1].view(e, capacity, d)
+    buf = flat[:-1].view(e_local, capacity, d)
 
     out_buf = _expert_ffn(buf, wi, wg, wo, cfg, counts, use_kernel)
 
     y = out_buf.reshape(-1, d)[e_loc * capacity + p_loc].reshape(n, k, d)
     y = y * (gates.to(x2d.dtype) * w)[..., None]
     return y.sum(dim=1)
+
+
+def _expert_load(ids, kept, n_experts: int) -> torch.Tensor:
+    return torch.zeros((n_experts,), dtype=torch.int32,
+                       device=ids.device).index_add_(
+        0, ids.reshape(-1), kept.reshape(-1).to(torch.int32))
 
 
 def moe_apply_dense(p, x, cfg, router_bias=None, *, skip_empty=False,
@@ -151,20 +169,66 @@ def moe_apply_dense(p, x, cfg, router_bias=None, *, skip_empty=False,
     cap = _capacity(x2d.shape[0], cfg)
     ids, gates = route(x2d, p["router"], cfg, router_bias)
     pos, kept = _dispatch_indices(ids, cfg.num_experts, cap)
-    load = torch.zeros((cfg.num_experts,), dtype=torch.int32,
-                       device=x.device).index_add_(
-        0, ids.reshape(-1), kept.reshape(-1).to(torch.int32))
+    load = _expert_load(ids, kept, cfg.num_experts)
     y = _gather_compute_scatter(
-        x2d, ids, gates, pos, kept, p["wi"], p["wg"], p["wo"], cfg, cap,
-        load if skip_empty else None, use_kernel)
+        x2d, ids, gates, pos, kept, p["wi"], p["wg"], p["wo"], cfg,
+        0, cfg.num_experts, cap, load if skip_empty else None, use_kernel)
+    return y.reshape(b, t, d), {"expert_load": load}
+
+
+def moe_apply_sharded(p, x, cfg, mesh, data_axes=("data",),
+                      model_axis="model", router_bias=None, *,
+                      skip_empty=False, use_kernel=None):
+    """Expert-parallel path on this rank's blocks: `p`'s expert weights
+    (E_loc, ...) are its experts, e_lo = its index along `model_axis` x
+    E_loc, and x (B_loc, T, D) its rows of the batch (split over
+    `data_axes`).  Returns (its rows of y, {"expert_load": the global (E,)
+    load}): y summed over `model`, the load over the data axes."""
+    tp = mesh.axis_size(model_axis)
+    e_local = cfg.num_experts // tp
+    if cfg.num_experts % tp or p["wi"].shape[0] != e_local:
+        raise ValueError(
+            f"{cfg.num_experts} experts over {tp} ranks of "
+            f"{model_axis!r}: each rank takes its {e_local} experts "
+            f"(ShardingPlan.shard_params), got {p['wi'].shape[0]}")
+    e_lo = mesh.axis_index(model_axis) * e_local
+    b, t, d = x.shape
+    x2d = x.reshape(-1, d)
+    n = x2d.shape[0]
+
+    def one_chunk(xc):
+        cap = _capacity(xc.shape[0], cfg)
+        ids, gates = route(xc, p["router"], cfg, router_bias)
+        pos, kept = _dispatch_indices(ids, cfg.num_experts, cap)
+        load = _expert_load(ids, kept, cfg.num_experts)
+        counts = load[e_lo:e_lo + e_local] if skip_empty else None
+        y = _gather_compute_scatter(
+            xc, ids, gates, pos, kept, p["wi"], p["wg"], p["wo"], cfg,
+            e_lo, e_local, cap, counts, use_kernel)
+        return y, load
+
+    if n > MOE_TOKEN_CHUNK and n % MOE_TOKEN_CHUNK == 0:
+        outs = [one_chunk(xc) for xc in x2d.split(MOE_TOKEN_CHUNK)]
+        y = torch.cat([o[0] for o in outs])
+        load = torch.stack([o[1] for o in outs]).sum(0, dtype=torch.int32)
+    else:
+        y, load = one_chunk(x2d)
+    y = mesh.all_reduce(y, model_axis)
+    load = mesh.all_reduce(load, data_axes)   # global per-layer load
     return y.reshape(b, t, d), {"expert_load": load}
 
 
 def moe_apply(p, x, cfg, mesh=None, router_bias=None, *, skip_empty=False,
-              use_kernel=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the expert-parallel MoE (moe_apply_sharded) is TPU-mesh code "
-            "with no counterpart on one card; pass mesh=None")
-    return moe_apply_dense(p, x, cfg, router_bias, skip_empty=skip_empty,
-                           use_kernel=use_kernel)
+              use_kernel=None, data_axes=("data",)):
+    """`moe_apply_dense`, or over `mesh` (a `launch.mesh.Mesh`)
+    `moe_apply_sharded`."""
+    if mesh is None:
+        return moe_apply_dense(p, x, cfg, router_bias, skip_empty=skip_empty,
+                               use_kernel=use_kernel)
+    from repro_torch.launch.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh or "
+                        f"None, not {type(mesh).__name__}")
+    return moe_apply_sharded(p, x, cfg, mesh, data_axes,
+                             router_bias=router_bias, skip_empty=skip_empty,
+                             use_kernel=use_kernel)

@@ -47,8 +47,24 @@ the decode kernel for each decode step (over the window ring for
 "lattn"), the grouped-FFN kernel `moe_gmm` at prefill and `moe_gmm_skip`
 at a decode step, `rglru_scan` in every "rec" block and `rwkv6_scan` in
 every "rwkv" block at every T, on CUDA tensors; their plain versions on
-CPU tensors.  The JAX package's sharding context (`shd`, `_expand_kv` for
-head-TP) has no counterpart on one card: `shd` must be None.
+CPU tensors.
+
+Sharding: `shd` is the reference's duck-typed context, here a
+`repro_torch.sharding.ShardingPlan` over a `launch.mesh.Mesh` of the
+job's ranks (anything else raises `TypeError`), or None: the one-device
+model.  Under a plan every rank runs the model on replicated activations
+and the plan's blocks of what the reference's `shard_map` sections take
+sharded: each MoE block runs `moe.moe_apply_sharded` on its rows of the
+batch and its experts (`plan.shard_params` cuts them), and a decode step
+attends through `kvcache.decode_attention_sharded` over its block of
+each full-attention cache (`init_cache(..., shd=plan)` allocates only
+that block; batch over the data axes, sequence over `model`), the
+rows all-gathered back over the data axes.  Prefill returns the whole
+prompt's cache on every rank (`plan.shard_cache` cuts a rank's block).
+Head-TP prefill expands GQA K/V to one head a query head first
+(`_expand_kv`), as the reference.  Dense weights stay whole, `ctx.act`
+returns its activation; training under a plan is not ported (`loss_fn`
+raises).
 """
 from __future__ import annotations
 
@@ -63,17 +79,20 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache, layers, moe, rglru, rwkv6
+from repro_torch.sharding.partition import ShardingPlan, map_with_path
 from repro_torch.tree_util import tree_map
 
 __all__ = ["segments", "init_params", "init_cache", "Ctx", "apply_block",
            "run_segments", "forward", "loss_fn", "prefill", "decode_step",
            "DecoderLM"]
 
-def _no_shd(shd) -> None:
-    if shd is not None:
-        raise NotImplementedError(
-            "sharding contexts (shd, ShardingPlan) are TPU-mesh code with "
-            "no counterpart on one card; pass shd=None")
+def check_plan(shd) -> ShardingPlan | None:
+    """`shd` if it is None or a port `ShardingPlan`; raises otherwise."""
+    if shd is not None and not isinstance(shd, ShardingPlan):
+        raise TypeError(
+            f"shd must be a repro_torch.sharding.ShardingPlan or None, not "
+            f"{type(shd).__module__}.{type(shd).__name__}")
+    return shd
 
 
 # ---------------------------------------------------------------------------
@@ -180,12 +199,21 @@ def _init_block_cache(btype, cfg, batch, length, device):
     raise ValueError(btype)
 
 
-def init_cache(cfg, batch: int, length: int, device="cuda"):
+def init_cache(cfg, batch: int, length: int, device="cuda", shd=None):
     """Decode cache for a max context of `length` tokens: per segment, per
     block type, its leaves stacked over the segment's n layers: {"k",
     "v"} of (n, batch, length, KH, Dh) for "attn"/"moe", of (n, batch,
     window, KH, Dh) for "lattn"; the f32 states {"h", "conv"} of "rec" and
-    {"s", "shift_tm", "shift_cm"} of "rwkv"."""
+    {"s", "shift_tm", "shift_cm"} of "rwkv".  Under a plan (`shd`) only
+    this rank's block of each "attn"/"moe" K/V leaf is allocated."""
+    plan = check_plan(shd)
+    if plan is not None:
+        dev = resolve_device(device)
+        return map_with_path(
+            lambda name, leaf: torch.zeros(
+                plan.local_cache_shape(name, leaf), dtype=leaf.dtype,
+                device=dev),
+            init_cache(cfg, batch, length, "meta"))
     dev = resolve_device(device)
     out = []
     for types, n in segments(cfg):
@@ -208,6 +236,31 @@ class Ctx(NamedTuple):
     positions: Any               # (B,T) ids, (B,T,3) mrope, or (B,) decode
     use_kernel: Any = None       # None/"auto" | "kernel" | "plain"
     router_bias: Any = None      # (E,) slot-hit routing bias (serving)
+    shd: Any = None              # a ShardingPlan or None
+
+    @property
+    def mesh(self):
+        return getattr(self.shd, "mesh", None)
+
+    @property
+    def data_axes(self):
+        return getattr(self.shd, "data_axes", ("data",))
+
+    def act(self, x, kind):
+        return self.shd.act(x, kind) if self.shd is not None else x
+
+    def rows(self, x):
+        """This rank's rows of a replicated batch (all of them without a
+        plan)."""
+        if self.shd is None:
+            return x
+        return x[self.shd.block(x.shape[0], self.shd.dp)]
+
+    def gather_rows(self, x):
+        """The ranks' rows all-gathered back over the data axes."""
+        if self.shd is None:
+            return x
+        return self.mesh.all_gather(x, self.data_axes, dim=0)
 
 
 def _prefill_cache(cfg, k, v, window):
@@ -244,10 +297,19 @@ def _local_attention(q, k, v, window, use_kernel=None):
                                   use_kernel=use_kernel)
 
 
+def _expand_kv(k, g: int):
+    """(B, T, KH, dh) -> (B, T, KH * g, dh): each kv head repeated for its
+    g query heads."""
+    b, t, kh, dh = k.shape
+    return k[:, :, :, None, :].expand(b, t, kh, g, dh).reshape(
+        b, t, kh * g, dh)
+
+
 def _attention(p, x, cache, ctx, window: int):
     cfg = ctx.cfg
     b, t, _ = x.shape
     h = layers.rmsnorm(x, p["ln1"])
+    h = ctx.act(h, "attn_in")
     pos = ctx.positions
     if ctx.mode == "decode":
         rope_pos = pos[:, None] if cfg.pos == "rope" else \
@@ -255,24 +317,40 @@ def _attention(p, x, cache, ctx, window: int):
     else:
         rope_pos = pos
     q, k, v = layers.qkv(p["attn"], h, cfg, rope_pos)
+    q = ctx.act(q, "q_heads")
     if ctx.mode == "decode":
         if window:
             o, new_cache = kvcache.window_decode_attention(
                 q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
+        elif ctx.mesh is not None:
+            o, new_cache = kvcache.decode_attention(
+                ctx.rows(q), cache, ctx.rows(k), ctx.rows(v), ctx.rows(pos),
+                cfg, ctx.mesh, data_axes=ctx.data_axes)
+            o = ctx.gather_rows(o)
         else:
             o, new_cache = kvcache.decode_attention(
                 q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
     else:
+        k = ctx.act(k, "kv_heads")
+        v = ctx.act(v, "kv_heads")
+        kq, vq = k, v
+        if (ctx.shd is not None and ctx.shd.strategy == "heads"
+                and cfg.q_per_kv > 1):
+            # GQA under head-TP: one kv head a query head before the
+            # kernel, as the reference (whose sharded reshape needs it)
+            kq = ctx.act(_expand_kv(k, cfg.q_per_kv), "q_heads")
+            vq = ctx.act(_expand_kv(v, cfg.q_per_kv), "q_heads")
         if window:
-            o = _local_attention(q, k, v, window, ctx.use_kernel)
+            o = _local_attention(q, kq, vq, window, ctx.use_kernel)
         else:
-            o = layers.flash_attention(q, k, v, causal=True,
+            o = layers.flash_attention(q, kq, vq, causal=True,
                                        use_kernel=ctx.use_kernel)
         new_cache = None
         if ctx.mode == "prefill":
             new_cache = _prefill_cache(cfg, k, v, window)
     o = o.reshape(b, t, -1)
-    return o @ p["attn"]["wo"], new_cache
+    o = ctx.act(o, "attn_out")
+    return ctx.act(o @ p["attn"]["wo"], "hidden"), new_cache
 
 
 def _carry_state(cache, new, ctx):
@@ -296,10 +374,13 @@ def apply_block(btype, p, x, cache, ctx):
         h = layers.rmsnorm(x, p["ln2"])
         if btype != "moe":
             return x + layers.apply_mlp(p["mlp"], h, cfg), new_cache, aux
-        mo, aux = moe.moe_apply(p["moe"], h, cfg,
+        h = ctx.act(h, "mlp_in")
+        mo, aux = moe.moe_apply(p["moe"], ctx.rows(h), cfg, ctx.mesh,
                                 router_bias=ctx.router_bias,
                                 skip_empty=ctx.mode == "decode",
-                                use_kernel=ctx.use_kernel)
+                                use_kernel=ctx.use_kernel,
+                                data_axes=ctx.data_axes)
+        mo = ctx.gather_rows(mo)
         if cfg.dense_ff_residual:
             mo = mo + layers.apply_mlp(p["dense"], h, cfg)
         return x + mo, new_cache, aux
@@ -451,11 +532,11 @@ def _logits(cfg, params, x, ctx):
 def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
     """Full-sequence pass.  Returns (final-normed hidden (B,T,D), caches,
     aux, ctx)."""
-    _no_shd(shd)
+    plan = check_plan(shd)
     batch = _on_device(params, batch)
     t = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
     ctx = Ctx(cfg=cfg, mode=mode, positions=_positions_for(cfg, batch, t),
-              use_kernel=use_kernel)
+              use_kernel=use_kernel, shd=plan)
     x = _embed_in(cfg, params, batch, ctx)
     x, caches, aux = run_segments(params, x, None, ctx)
     x = layers.rmsnorm(x, params["final_norm"])
@@ -470,8 +551,13 @@ def loss_fn(cfg, params, batch, shd=None, use_kernel=None):
     under `checkpoint`, so that no (B, T, V) f32 logits are kept for the
     backward.  A MoE layer's `lb_loss` in aux would add 0.01 times its
     mean, as in the JAX package; neither package's MoE returns one (aux
-    holds `expert_load` only)."""
-    x, _, aux, ctx = forward(cfg, params, batch, shd, use_kernel=use_kernel)
+    holds `expert_load` only).  Training under a plan is not ported: a
+    `shd` raises."""
+    if check_plan(shd) is not None:
+        raise NotImplementedError(
+            "loss_fn under a ShardingPlan: the sharded paths carry no "
+            "gradient across ranks; train with shd=None")
+    x, _, aux, ctx = forward(cfg, params, batch, use_kernel=use_kernel)
     batch = _on_device(params, batch)
     tgt = batch["tokens"] if cfg.embed_inputs else batch["labels"]
     targets = F.pad(tgt[:, 1:].long(), (0, 1))
@@ -515,12 +601,14 @@ def decode_step(cfg, params, batch, cache, shd=None, use_kernel=None):
     """One token for every sequence.  batch: tokens/embeds (B,1,...) +
     positions (B,) [+ router_bias (E,) for MoE archs].  Writes the token's
     K/V into `cache` in place and returns (logits (B,1,V), that cache,
-    aux)."""
-    _no_shd(shd)
+    aux).  Under a plan (`shd`) `cache` holds this rank's blocks
+    (`init_cache(..., shd=plan)`)."""
+    plan = check_plan(shd)
     batch = _on_device(params, batch)
     ctx = Ctx(cfg=cfg, mode="decode",
               positions=batch["positions"].to(torch.int32),
-              use_kernel=use_kernel, router_bias=batch.get("router_bias"))
+              use_kernel=use_kernel, router_bias=batch.get("router_bias"),
+              shd=plan)
     x = _embed_in(cfg, params, batch, ctx)
     x, caches, aux = run_segments(params, x, cache, ctx)
     x = layers.rmsnorm(x, params["final_norm"])

@@ -6,11 +6,15 @@ compresses the slow cross-pod hop: a per-tensor scale agreed by all pods
 an error-feedback residual (1-bit-Adam style) that carries the
 quantisation noise into the next step instead of losing it.
 
-One card has no mesh and no `shard_map`: here the pod axis is the leading
-dimension of each tensor (the layout of the JAX package's
-`cross_pod_mean_tree` demonstration), and the collectives over it become
-a max and a sum over that dimension.  Given the same f32 inputs, the
-int8 payload is the JAX package's exactly.
+Two forms, equal bit for bit.  Over a mesh (`mesh=`, a
+`launch.mesh.Mesh` whose `axis` holds the pods) each rank passes its
+pod's block and the collectives are the reference's: the scale by a max
+all-reduce over the pod group, the int8 payload summed in int32 by
+another.  Without one (`mesh=None`, one process) the pod axis is the
+leading dimension of each tensor (the layout of the JAX package's
+`cross_pod_mean_tree` demonstration), and the collectives become a max
+and a sum over that dimension.  Given the same f32 inputs, the int8
+payload is the JAX package's exactly.
 """
 from __future__ import annotations
 
@@ -36,13 +40,28 @@ def quantize(g, ef=None):
     return gf, scale, q
 
 
-def compressed_psum_mean(g, ef):
-    """int8-compressed mean over the pods of g (pods, ...) with error
-    feedback ef (f32, same shape) or None.  Returns (the mean, broadcast
-    to every pod, in g's dtype; the new ef, f32).
+def compressed_psum_mean(g, ef, axis: str = "pod", mesh=None):
+    """int8-compressed mean over the pods with error feedback ef (f32, g's
+    shape) or None.  Returns (the mean in g's dtype, the new ef, f32).
 
-    Wire traffic on a mesh: one int8 payload of a pod's g.size bytes and
-    one scalar, instead of 2-4 bytes an element."""
+    Over `mesh`: g is this rank's gradient block and the pods are the
+    ranks along `axis` (the reference's primitive inside its `shard_map`);
+    wire traffic is one int8 payload of g.size bytes and one scalar,
+    instead of 2-4 bytes an element.  Without: g is (pods, ...) and the
+    mean comes back broadcast to every pod."""
+    if mesh is not None:
+        gf = g.float()
+        if ef is not None:
+            gf = gf + ef
+        scale = torch.clamp(gf.abs().amax() / 127.0, min=1e-12)
+        # all pods must agree on the scale (one scalar max on the wire)
+        scale = mesh.all_reduce(scale, axis, "max")
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        # int8 payload on the wire; the reduction accumulates in int32
+        total = mesh.all_reduce(q.to(torch.int32), axis)
+        npods = mesh.axis_size(axis)
+        mean = total.float() * scale / float(npods)
+        return mean.to(g.dtype), gf - q.float() * scale
     gf, scale, q = quantize(g, ef)
     npods = g.shape[0]
     total = q.to(torch.int32).sum(dim=0, keepdim=True, dtype=torch.int32)
@@ -51,14 +70,17 @@ def compressed_psum_mean(g, ef):
     return mean.to(g.dtype).expand_as(gf).contiguous(), new_ef
 
 
-def cross_pod_mean_tree(grads, ef_state=None):
+def cross_pod_mean_tree(grads, ef_state=None, mesh=None,
+                        pod_axis: str = "pod"):
     """`compressed_psum_mean` of every leaf of a gradient tree whose
-    leaves carry a leading pod dimension; ef_state None starts from zero
-    residuals.  Returns (means, new residuals), trees like `grads`."""
+    leaves carry a leading pod dimension: the whole of it without a mesh,
+    this rank's pod's block of it (leading dimension 1) over `mesh`.
+    ef_state None starts from zero residuals.  Returns (means, new
+    residuals), trees like `grads`."""
     flat = leaves(grads)
     flat_e = ([torch.zeros(g.shape, dtype=torch.float32, device=g.device)
                for g in flat] if ef_state is None else leaves(ef_state))
-    out = [compressed_psum_mean(g, e) for g, e in zip(flat, flat_e,
-                                                      strict=True)]
+    out = [compressed_psum_mean(g, e, pod_axis, mesh)
+           for g, e in zip(flat, flat_e, strict=True)]
     return (unflatten(grads, [m for m, _ in out]),
             unflatten(grads, [e for _, e in out]))

@@ -63,25 +63,34 @@ def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
     cache in place; the decode callback is one `decode_step` over the
     whole batch, and the next token is the first argmax of its logits.
     `params` live on `device`; both callbacks run under
-    `torch.no_grad()`."""
-    transformer._no_shd(shd)
+    `torch.no_grad()`.  Under a `ShardingPlan` (`shd`, every rank of its
+    mesh calling with the same requests) `params` hold this rank's experts
+    (`shd.shard_params`), each rank allocates and writes only its block
+    of each full-attention cache, and prompts, tokens and logs stay
+    replicated."""
+    plan = transformer.check_plan(shd)
     dev = resolve_device(device)
-    cache = transformer.init_cache(cfg, batch_size, max_len, dev)
+    cache = transformer.init_cache(cfg, batch_size, max_len, dev, shd=plan)
 
     @torch.no_grad()
     def prefill_row(row, tokens):
         t0 = len(tokens)
         _, row_cache, _ = transformer.prefill(
-            cfg, params, {"tokens": np.asarray(tokens)[None, :]},
+            cfg, params, {"tokens": np.asarray(tokens)[None, :]}, shd=plan,
             use_kernel=use_kernel)
-        for seg, row_seg in zip(cache, row_cache):
-            for dst, src in zip(seg, row_seg):
+        for si, (seg, row_seg) in enumerate(zip(cache, row_cache)):
+            for j, (dst, src) in enumerate(zip(seg, row_seg)):
                 for name, d in dst.items():
                     # d: (n, B, ...) shared cache; s: (n, 1, ...) the row's:
                     # a K/V prefix where s has a t0-long time axis, else
                     # (window caches, recurrent states) the whole row
                     s = src[name]
-                    if s.dim() >= 3 and s.shape[2] == t0 and \
+                    block = None if plan is None else plan.cache_block(
+                        f"{si}/{j}/{name}",
+                        (d.shape[0], batch_size, max_len, *d.shape[3:]))
+                    if block is not None:
+                        _write_block(d, s[:, 0], row, t0, *block)
+                    elif s.dim() >= 3 and s.shape[2] == t0 and \
                             d.shape[2] >= t0:
                         d[:, row, :t0] = s[:, 0]
                     else:
@@ -91,11 +100,22 @@ def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
     def decode(tokens, positions):
         logits, _, _ = transformer.decode_step(
             cfg, params, {"tokens": tokens, "positions": positions}, cache,
-            use_kernel=use_kernel)
+            shd=plan, use_kernel=use_kernel)
         return torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
 
     return ContinuousBatcher(batch_size, max_len, prefill_row=prefill_row,
                              decode=decode)
+
+
+def _write_block(d, s, row: int, t0: int, rows: slice, seq: slice) -> None:
+    """Write a row's (n, t0, ...) prompt K/V into this rank's block d (n,
+    B_loc, S_loc, ...) of the shared cache, which holds batch rows `rows`
+    and positions `seq` of it: the part of the prompt that falls there."""
+    if not rows.start <= row < rows.stop:
+        return
+    lo, hi = seq.start, min(seq.stop, t0)
+    if hi > lo:
+        d[:, row - rows.start, :hi - lo] = s[:, lo:hi]
 
 
 @dataclass
@@ -124,12 +144,15 @@ class EngineConfig:
 class SlotServeEngine:
     """Round-robin multi-tenant decode over one model with slot-resident
     expert accounting.  `params` live on `device` (default "cuda", which
-    raises without a card); each tenant's cache is made there."""
+    raises without a card); each tenant's cache is made there.  Under a
+    `ShardingPlan` (`shd`) `params` hold this rank's experts and each
+    tenant's cache this rank's blocks; the stats and slot pools are
+    replicated (every rank sees the global expert loads)."""
 
     def __init__(self, cfg, params, engine_cfg: EngineConfig,
                  tenants: list[Tenant], max_len: int = 128, shd=None,
                  device="cuda"):
-        transformer._no_shd(shd)
+        self.shd = transformer.check_plan(shd)
         self.cfg = cfg
         self.params = params
         self.ecfg = engine_cfg
@@ -153,7 +176,7 @@ class SlotServeEngine:
                       "steps": 0, "per_tenant": {t.name: 0 for t in tenants}}
         for t in tenants:
             t.cache = transformer.init_cache(cfg, t.tokens.shape[0], max_len,
-                                             self.device)
+                                             self.device, shd=self.shd)
 
     # ------------------------------------------------------------------
     def _router_bias(self, tenant: Tenant):
@@ -205,7 +228,7 @@ class SlotServeEngine:
         if rb is not None:
             batch["router_bias"] = rb
         _, cache, aux = transformer.decode_step(
-            self.cfg, self.params, batch, tenant.cache)
+            self.cfg, self.params, batch, tenant.cache, shd=self.shd)
         tenant.cache = cache
         tenant.position += 1
         tenant.done_tokens += b

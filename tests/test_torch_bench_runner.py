@@ -112,5 +112,25 @@ RECORDS = st.dictionaries(st.sampled_from(["a", "b", "c", "d"]), ENTRY,
                                      max_size=3)))
 def test_compare_equals_the_reference(base, cur, slowdown, min_us, modules):
     kw = dict(max_slowdown=slowdown, min_us=min_us, modules=modules)
-    assert t_gate.compare(base, cur, **kw) == j_gate.compare(base, cur,
-                                                             **kw)
+    assert _outcome(t_gate.compare, base, cur, kw) == _outcome(
+        j_gate.compare, base, cur, kw)
+
+
+def _outcome(compare, base, cur, kw):
+    """("ok", (rows, failures)) or ("raised", the exception's type): both
+    gates raise on the same records (a zero baseline above the floor
+    divides by zero in either), so the two are held to the same outcome."""
+    try:
+        return "ok", compare(base, cur, **kw)
+    except Exception as e:  # noqa: BLE001  (the type is what is compared)
+        return "raised", type(e)
+
+
+def test_compare_raises_where_the_reference_raises_on_a_zero_baseline():
+    base, cur = {"a": {"us_per_call": 0}}, {"a": {"us_per_call": 1}}
+    kw = dict(max_slowdown=1.0, min_us=0.0, modules=None)
+    for compare in (t_gate.compare, j_gate.compare):
+        with pytest.raises(ZeroDivisionError):
+            compare(base, cur, **kw)
+    assert _outcome(t_gate.compare, base, cur, kw) == (
+        "raised", ZeroDivisionError)

@@ -24,7 +24,8 @@ on a training path take their plain versions' gradients (1e-4 relative
 L2), the loss and every gradient through a narrow model of each family
 under each remat mode equal the plain route's, each kernel launched and
 recomputed as counted, and decode attention and `moe_gmm_skip` refuse
-autograd.  Marked `cuda`;
+autograd; and, with two cards, each kernel given tensors on cuda:1
+while cuda:0 is current launches on cuda:1.  Marked `cuda`;
 every test skips without a CUDA device.  On a machine with a card:
 `PYTHONPATH=src python -m pytest -q -m cuda tests/`.
 """
@@ -1082,3 +1083,35 @@ def test_kernel_functions_take_the_plain_gradient_on_card(dev):
                 loss, [a for a in leaves if a is not None])
         for g, w in zip(grads["auto"], grads["plain"], strict=True):
             assert _rel_l2(g, w) < 1e-4, what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_launch_on_their_tensors_card(dev, dtype):
+    """With cuda:0 current, flash, decode and the grouped FFN given
+    tensors on cuda:1 launch there (one card per rank can leave any card
+    current) and equal their plain versions; the current device is
+    unchanged after each launch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    gen = torch.Generator(device=d1).manual_seed(3)
+    with torch.cuda.device(0):
+        q = _randn(gen, (2, 65, 8, 64), dtype, d1)
+        kv = _randn(gen, (2, 65, 2, 64), dtype, d1)
+        got = fa.flash_attention(q, kv, kv)
+        assert got.device == d1 and torch.cuda.current_device() == 0
+        _assert_close(got, fa.flash_attention_plain(q, kv, kv), dtype)
+        kv_len = torch.tensor([1, 65], dtype=torch.int32, device=d1)
+        got = da.decode_attention(q[:, 0], kv, kv, kv_len)
+        assert got.device == d1 and torch.cuda.current_device() == 0
+        _assert_close(got, da.decode_attention_plain(q[:, 0], kv, kv,
+                                                     kv_len), dtype)
+        x = _randn(gen, (4, 64, 128), dtype, d1)
+        wg = _randn(gen, (4, 128, 256), dtype, d1) * 0.1
+        wi = _randn(gen, (4, 128, 256), dtype, d1) * 0.1
+        wo = _randn(gen, (4, 256, 128), dtype, d1) * 0.1
+        got = gmm.moe_gmm(x, wg, wi, wo)
+        assert got.device == d1 and torch.cuda.current_device() == 0
+        torch.testing.assert_close(
+            got.float(), gmm.moe_gmm_plain(x, wg, wi, wo).float(),
+            atol=GMM_ATOL[dtype], rtol=GMM_ATOL[dtype])

@@ -195,10 +195,19 @@ def test_forced_attention_kernels_on_cpu_tensors_raise():
             q[:, 0], kv, kv, torch.ones(1, dtype=torch.int32),
             use_kernel=True)
     cache = {"k": kv.clone(), "v": kv.clone()}
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(TypeError, match="Mesh"):
         kvcache.decode_attention(q[:, :1], cache, kv[:, :1], kv[:, :1],
                                  torch.zeros(1, dtype=torch.int32), None,
                                  mesh=object())
+    # mesh=None is the single-device path (the plain version on the CPU)
+    cfg = type("Cfg", (), {"num_kv_heads": 2})()
+    got, _ = kvcache.decode_attention(
+        q[:, :1], {"k": kv.clone(), "v": kv.clone()}, kv[:, :1], kv[:, :1],
+        torch.zeros(1, dtype=torch.int32), cfg, mesh=None)
+    want, _ = kvcache.decode_attention_local(
+        q[:, :1], {"k": kv.clone(), "v": kv.clone()}, kv[:, :1], kv[:, :1],
+        torch.zeros(1, dtype=torch.int32), cfg)
+    assert torch.equal(got, want)
     assert (flash_attention.flash_attention.launches,
             decode_attention.decode_attention.launches) == before
 

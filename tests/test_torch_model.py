@@ -298,8 +298,11 @@ def test_later_blocks_and_sharding_raise():
             pattern=("rec", "conv")), 1, 8, "cpu")
     cfg = tcb.get_config("granite-3-2b").smoke()
     params = tt.init_params(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(TypeError, match="ShardingPlan"):
         tt.prefill(cfg, params, _batch(cfg, 1, 4), shd=object())
+    # shd=None is the single-device path, unchanged
+    got = tt.prefill(cfg, params, _batch(cfg, 1, 4), shd=None)[0]
+    assert torch.equal(got, tt.prefill(cfg, params, _batch(cfg, 1, 4))[0])
     with pytest.raises(ValueError, match="CUDA"):
         tt.prefill(cfg, params, _batch(cfg, 1, 4), use_kernel="kernel")
 

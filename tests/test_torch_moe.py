@@ -171,8 +171,13 @@ def test_unported_forms_raise():
     with pytest.raises(NotImplementedError, match="swiglu"):
         tm.moe_apply(p, x, tcfg)
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.moe_apply(p, x, tcfg, mesh=object())
+    # mesh=None is the single-device path, unchanged
+    y, aux = tm.moe_apply(p, x, tcfg, mesh=None)
+    y0, aux0 = tm.moe_apply_dense(p, x, tcfg)
+    assert torch.equal(y, y0)
+    assert torch.equal(aux["expert_load"], aux0["expert_load"])
 
 
 def test_init_moe_matches_jax_tree():
