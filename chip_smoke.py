@@ -82,7 +82,8 @@ kernel with its plain version and are not counted on the kernels line).
 
 The dense-model slice: it holds the flash and decode attention kernels
 against their plain versions (bf16 and f32, head dims 64/128, GQA, MQA,
-ragged lengths, windows, kv_len 0/1/S) at test_kernels.py's tolerances;
+ragged lengths, windows, kv_len 0/1/S; flash also on a block of the
+queries at q_offset 0 and T/2) at test_kernels.py's tolerances;
 runs granite-3-2b at full width, 2 layers, f32, through the kernels and
 holds 9 steps of logits to the JAX package's (constants below, from
 `tests/jax_anchor.py`); checks at full depth in bf16 that prefill plus
@@ -181,7 +182,18 @@ experts and its block of each cache, against the same requests on one
 rank: request 0's prefill logits within DEEP_BF16_REL, its first MoE
 layer's expert load equal, every rank's tokens equal, the sharded decode
 launching no decode kernel (the reference's einsum body), the share of
-decode tokens equal to one rank's printed; `mesh_fleet` runs fig7's grid
+decode tokens equal to one rank's printed; `mesh_gspmd_serve` serves
+granite-3-2b at full width and depth on (data 1, model R) (head-TP and
+Megatron-SP) and on (data R, model 1) (FSDP, batch over data) and
+qwen1.5-4b at full width cut to 8 layers on (data 1, model R)
+(sequence-parallel attention: flash on each rank's block of the queries
+at its q_offset) through `model_batcher` under the plans (`serve.step`),
+every rank holding copies of its blocks of the weights alone (its
+resident bytes within 1 % of the specs' count), request 0's prefill
+logits within DEEP_BF16_REL of one rank's, every request finished,
+tokens equal across ranks, flash's local heads H/tp (granite) and a
+nonzero q_offset past the first model rank (qwen), the collectives of a
+prefill and of a decode step counted by kind; `mesh_fleet` runs fig7's grid
 and the P=4 fleet sweep with the fleet axis sharded over the ranks, the
 rows' sha1s the one-rank phases'; `mesh_compress` holds
 `cross_pod_mean_tree` over the ranks as pods, on one granite-3-2b
@@ -208,6 +220,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -1914,6 +1927,13 @@ FLASH_CASES = (  # (B, T, H, KH, D, window): prompt lengths, GQA g 1/4, MQA
     (2, 65, 8, 2, 128, 0), (1, 1000, 32, 8, 64, 0), (2, 300, 8, 1, 128, 0),
     (1, 257, 8, 2, 64, 100), (2, 129, 4, 4, 128, 64),
     (1, 1000, 56, 8, 128, 0), (1, 333, 40, 8, 128, 0))  # G 7 arctic, 5 llama4
+# (B, Tq, Tk, H, KH, D, q_offset, window): a block of the queries at
+# q_offset against the whole K/V, as the sequence-parallel prefill runs
+# flash: granite's heads on half the ranks, qwen1.5-4b's on half a prompt
+FLASH_OFFSET_CASES = (
+    (1, 512, 1024, 16, 16, 64, 0, 0), (1, 512, 1024, 16, 16, 64, 512, 0),
+    (2, 256, 512, 20, 20, 128, 0, 0), (2, 256, 512, 20, 20, 128, 256, 0),
+    (1, 150, 300, 8, 2, 64, 150, 100), (1, 77, 300, 8, 2, 128, 223, 0))
 DECODE_CASES = (  # (B, S, H, KH, D)
     (4, 2048, 32, 8, 64), (4, 300, 8, 8, 64), (4, 256, 8, 1, 128),
     (4, 128, 16, 4, 128), (4, 2048, 56, 8, 128), (4, 777, 40, 8, 128))
@@ -1946,6 +1966,16 @@ def phase_attention_vs_plain(dev, errs: dict) -> None:
                                    f"window={window}")
             key = ("flash", str(dtype).split(".")[-1])
             worst[key] = max(worst.get(key, 0.0), err)
+        for b, tq, tk, h, kh, d, off, window in FLASH_OFFSET_CASES:
+            q, k, v = r(b, tq, h, d), r(b, tk, kh, d), r(b, tk, kh, d)
+            kw = dict(window=window, q_offset=off)
+            err = _attn_err(fa.flash_attention(q, k, v, **kw),
+                            fa.flash_attention_plain(q, k, v, **kw),
+                            dtype, f"flash {dtype} Tq={tq} Tk={tk} "
+                                   f"q_offset={off} H={h}/{kh} D={d} "
+                                   f"window={window}")
+            key = ("flash", str(dtype).split(".")[-1])
+            worst[key] = max(worst.get(key, 0.0), err)
         for b, s, h, kh, d in DECODE_CASES:
             q, kc, vc = r(b, h, d), r(b, s, kh, d), r(b, s, kh, d)
             kv_len = torch.tensor([0, 1, s, s // 3 + 7], dtype=torch.int32,
@@ -1961,6 +1991,7 @@ def phase_attention_vs_plain(dev, errs: dict) -> None:
         key = f"{name}_attention"
         errs[key] = max(errs[key], err)
     emit("attention_vs_plain", flash_cases=len(FLASH_CASES),
+         flash_offset_cases=[list(c) for c in FLASH_OFFSET_CASES],
          decode_cases=len(DECODE_CASES), dtypes=["float32", "bfloat16"],
          tolerance=ATTN_TOL, max_abs_err={f"{n} {d}": e for (n, d), e in
                                            worst.items()}, match=True,
@@ -4306,6 +4337,9 @@ def _serve_once(cfg, params, dev, plan=None) -> dict:
     with torch.no_grad():
         logits, _, aux = transformer.prefill(
             cfg, params, {"tokens": reqs[0].prompt[None]}, shd=plan)
+    if plan is not None:     # this rank's block of the vocabulary
+        logits = plan.relayout(logits, plan.spec(
+            "logits", (1, 1, cfg.vocab)), ())
     load = aux[0][0]["expert_load"][0]
     batcher = model_batcher(cfg, params, MESH_SERVE["batch"],
                             MESH_SERVE["max_len"], shd=plan, device=dev)
@@ -4412,6 +4446,273 @@ def phase_mesh_serve(dev, card: str) -> dict:
          serve_s=[r["serve_s"] for r in ranks], launches=launches,
          ranks=_per_rank(ranks), parent_gb_after=left_gb, nvidia_smi=card)
     return launches
+
+
+# mesh_gspmd_serve: the dense weights and activations laid out by the
+# plan (tensor, sequence and FSDP parallelism), served through
+# `model_batcher` -> `serve.step`: (name, arch, mesh with "R" the card
+# world's ranks, requests, new tokens).  Prompt lengths divide by 4, so
+# qwen's sequence-sharded prefill splits every prompt at 2 or 4 ranks.
+# FSDP over gloo stages ~2.4 GB of layer weights through the host a
+# forward (~7.5 s on one card), so its run serves 1 request of 2 tokens
+GSPMD_RUNS = (
+    ("granite_tp_sp", "granite-3-2b", {"data": 1, "model": "R"}, 4, 4),
+    ("granite_fsdp", "granite-3-2b", {"data": "R", "model": 1}, 1, 2),
+    ("qwen_seq", "qwen1.5-4b-8l", {"data": 1, "model": "R"}, 4, 8))
+GSPMD_SERVE = dict(batch=4, max_len=1024, prompt_lens=(512, 300, 256, 100))
+QWEN_8L = "qwen1.5-4b-8l"
+GSPMD_RESIDENT_REL = 0.01  # resident weight bytes against the specs' count
+
+
+def register_qwen_8l():
+    """qwen1.5-4b at full width (20 heads of 128, vocab 151,936) cut to 8
+    layers, in the port's registry under its own name."""
+    from repro_torch.configs import base as cb
+    cb.load_all()
+    return cb.register(dataclasses.replace(cb.get_config("qwen1.5-4b"),
+                                           name=QWEN_8L, num_layers=8))
+
+
+def _gspmd_requests(cfg, n: int, new_tokens: int) -> list:
+    from repro_torch.serve.batching import Request
+    rng = np.random.default_rng(0)
+    return [Request(i, rng.integers(0, cfg.vocab, (t,)).astype(np.int32),
+                    max_new_tokens=new_tokens)
+            for i, t in enumerate(GSPMD_SERVE["prompt_lens"][:n])]
+
+
+def _gspmd_serve_once(cfg, params, dev, n: int, new_tokens: int,
+                      plan=None, counts=None) -> dict:
+    """`n` requests of GSPMD_SERVE's prompts through `model_batcher`
+    (under `plan`): request 0's prefill logits (the batcher's first
+    prefill, put together whole), every request's tokens, the report,
+    the serving seconds and, with `counts` (a `_count_collectives` dict),
+    the collectives of the first prefill and the first decode step."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import model_batcher
+    reqs = _gspmd_requests(cfg, n, new_tokens)
+    first, real = {}, (transformer.prefill, transformer.decode_step)
+
+    def spied(fn, key):
+        def call(*a, **kw):
+            before = dict(counts or {})
+            out = fn(*a, **kw)
+            if key not in first:
+                first[key] = (out[0], {k: v - before.get(k, 0)
+                                       for k, v in (counts or {}).items()
+                                       if v != before.get(k, 0)})
+            return out
+        return call
+
+    transformer.prefill = spied(real[0], "prefill")
+    transformer.decode_step = spied(real[1], "decode_step")
+    try:
+        batcher = model_batcher(cfg, params, GSPMD_SERVE["batch"],
+                                GSPMD_SERVE["max_len"], shd=plan,
+                                device=dev)
+        for r in reqs:
+            batcher.submit(r)
+        t0 = time.perf_counter()
+        report = batcher.run_until_drained()
+        torch.cuda.synchronize()
+        secs = round(time.perf_counter() - t0, 3)
+    finally:
+        transformer.prefill, transformer.decode_step = real
+    logits = first["prefill"][0]
+    if plan is not None:     # this rank's block of the vocabulary
+        pre = dataclasses.replace(plan, mode="prefill")
+        logits = pre.relayout(logits, pre.spec("logits", (1, 1, cfg.vocab)),
+                              ())
+    return {"logits": logits.float().cpu(),
+            "tokens": [list(r.generated) for r in reqs], "report": report,
+            "serve_s": secs,
+            "collectives": {k: first[k][1] for k in ("prefill",
+                                                     "decode_step")}}
+
+
+def _count_collectives(m) -> dict:
+    """Count the collectives `m` issues over more than one rank, by kind,
+    into the returned dict (a reduce-scatter that gloo runs as an
+    all-reduce counts once, as a reduce-scatter)."""
+    counts, depth = {}, [0]
+    for kind in ("all_reduce", "all_gather", "reduce_scatter"):
+        real = getattr(m, kind)
+
+        def spy(x, axes, *a, _real=real, _kind=kind, **kw):
+            if depth[0] == 0 and m.axis_size(axes) > 1:
+                counts[_kind] = counts.get(_kind, 0) + 1
+            depth[0] += 1
+            try:
+                return _real(x, axes, *a, **kw)
+            finally:
+                depth[0] -= 1
+
+        setattr(m, kind, spy)
+    return counts
+
+
+def _spec_bytes(plan, cfg) -> int:
+    """The bytes of a rank's blocks of `cfg`'s weights by the plan's
+    `param_specs`."""
+    from repro_torch.serve import step
+    from repro_torch.sharding.partition import spec_leaves
+    shapes = step.abstract_params(cfg)
+    return sum(math.prod(plan.local_shape(tuple(leaf.shape), spec))
+               * leaf.element_size()
+               for (_, leaf), (_, spec) in zip(
+                   spec_leaves(shapes),
+                   spec_leaves(plan.param_specs(shapes))))
+
+
+def _resident_bytes(tree) -> int:
+    """Bytes of the distinct storages under a tree's tensors."""
+    from repro_torch.tree_util import leaves
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in leaves(tree)}.values())
+
+
+def gspmd_serve_rank(shared: list) -> dict:
+    """One rank of `mesh_gspmd_serve`: for each of GSPMD_RUNS its blocks
+    of the weights in `shared` (copied to its card from the views it gets
+    by CUDA IPC, so it holds its blocks alone), then `_gspmd_serve_once`
+    under the plan, its collectives counted and every flash launch's
+    local heads and q_offset recorded.  The weights are popped from `shared` and dropped
+    before it returns."""
+    weights = shared.pop()
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import ShardingPlan
+    from repro_torch.tree_util import tree_map
+    dev = _rank_device()
+    world = mesh.world()[0]
+    seen, real = set(), fa._kernel
+
+    def spy(q, k, v, **kw):
+        seen.add((int(q.shape[2]), int(kw.get("q_offset", 0))))
+        return real(q, k, v, **kw)
+
+    fa._kernel = spy
+    out = {}
+    try:
+        for name, arch, axes, n, new_tokens in GSPMD_RUNS:
+            cfg, full = weights[arch]
+            m = mesh.Mesh({a: world if k == "R" else k
+                           for a, k in axes.items()})
+            plan = ShardingPlan(m, cfg, mode="decode")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            local = tree_map(lambda t: t.to(dev, copy=True),
+                             plan.shard_params(full))
+            resident = _resident_bytes(local)
+            want = _spec_bytes(plan, cfg)
+            counts = _count_collectives(m)
+            seen.clear()
+            fa.flash_attention.launches = 0
+            da.decode_attention.launches = 0
+            res = _gspmd_serve_once(cfg, local, dev, n, new_tokens, plan,
+                                    counts)
+            out[name] = _rank_report(
+                t0, **res, resident_bytes=resident, spec_bytes=want,
+                launches={"flash_attention": fa.flash_attention.launches,
+                          "decode_attention": da.decode_attention.launches},
+                flash_seen=sorted(seen), coords=dict(m.coords),
+                mesh=dict(m.shape))
+            del local
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        fa._kernel = real
+    del weights, full
+    gc.collect()
+    return out
+
+
+def phase_mesh_gspmd_serve(dev, card: str) -> dict:
+    """granite-3-2b at full width and depth on (data 1, model R) (head-TP
+    and Megatron-SP) and (data R, model 1) (FSDP, batch over data), and
+    qwen1.5-4b at full width cut to 8 layers on (data 1, model R)
+    (sequence-parallel: flash on each rank's block of the queries at its
+    q_offset), served through `model_batcher` under the port's plans
+    (`serve.step`), each rank holding its blocks of the weights alone;
+    the weights drawn once here (seed 0), with each model's one-rank
+    serve of the same requests.  Each rank: request 0's prefill logits
+    within DEEP_BF16_REL of one rank's, every request finished, tokens
+    equal to rank 0's, flash launched on every rank with H/tp local
+    heads (granite) or at a nonzero q_offset on the model ranks past the
+    first (qwen), no decode kernel (the sequence-sharded decode is the
+    reference's einsum body), resident weight bytes within 1 % of the
+    specs' count; the share of decode tokens equal to one rank's is
+    printed, not gated."""
+    from repro_torch.configs import base as cb
+    from repro_torch.models import transformer
+    cb.load_all()
+    weights, one = {}, {}
+    for name, arch, _, n, new_tokens in GSPMD_RUNS:
+        if arch not in weights:
+            cfg = register_qwen_8l() if arch == QWEN_8L \
+                else cb.get_config(arch)
+            params = transformer.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            weights[arch] = (cfg, params)
+        one[name] = _gspmd_serve_once(*weights[arch], dev, n, new_tokens)
+    torch.cuda.empty_cache()
+    ranks, world, backend, secs = _spawn(gspmd_serve_rank, ([weights],))
+    del weights, params
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    runs, launches = {}, 0
+    for name, arch, _, n, new_tokens in GSPMD_RUNS:
+        cfg = cb.get_config(arch)
+        rels, shares, rows = [], [], []
+        for i, rank in enumerate(ranks):
+            r = rank[name]
+            what = f"mesh_gspmd_serve {name} rank {i}"
+            rel = _rel(r["logits"], one[name]["logits"])
+            rels.append(rel)
+            check(rel <= DEEP_BF16_REL, f"{what}: prefill logits {rel} "
+                                        f"from one rank's > {DEEP_BF16_REL}")
+            check(r["report"]["finished"] == n,
+                  f"{what} served {r['report']['finished']} of {n}")
+            check(r["tokens"] == ranks[0][name]["tokens"],
+                  f"{what}'s tokens differ from rank 0's")
+            check(r["launches"]["flash_attention"] > 0,
+                  f"{what} launched no flash")
+            check(r["launches"]["decode_attention"] == 0,
+                  f"{what}: the sharded decode launched the decode kernel")
+            tp = r["mesh"]["model"]
+            heads = {h for h, _ in r["flash_seen"]}
+            offsets = {o for _, o in r["flash_seen"]}
+            if cfg.attn_sharding == "heads":
+                check(heads == {cfg.num_heads // tp},
+                      f"{what}: flash took heads {heads}, not "
+                      f"{cfg.num_heads // tp}")
+            elif r["coords"]["model"] > 0:
+                check(max(offsets) > 0, f"{what}: flash saw q_offsets "
+                                        f"{offsets}, none past 0")
+            gap = abs(r["resident_bytes"] / r["spec_bytes"] - 1)
+            check(gap <= GSPMD_RESIDENT_REL,
+                  f"{what} holds {r['resident_bytes']} weight bytes, the "
+                  f"specs give {r['spec_bytes']}")
+            pairs = [(a, b) for got, want in zip(r["tokens"],
+                                                 one[name]["tokens"])
+                     for a, b in zip(got, want)]
+            shares.append(sum(a == b for a, b in pairs) / max(len(pairs), 1))
+            rows.append({k: r[k] for k in (
+                "seconds", "peak_gb", "serve_s", "resident_bytes",
+                "spec_bytes", "collectives", "launches", "flash_seen")})
+            launches += r["launches"]["flash_attention"]
+        runs[name] = dict(
+            arch=arch, layers=cfg.num_layers, mesh=ranks[0][name]["mesh"],
+            strategy=cfg.attn_sharding, requests=n, new_tokens=new_tokens,
+            prefill_rel_l2=rels, decode_tokens_equal_share=shares,
+            one_rank_serve_s=one[name]["serve_s"], ranks=rows)
+    emit("mesh_gspmd_serve", world=world, backend=backend, seconds=secs,
+         tolerance=DEEP_BF16_REL, resident_tolerance=GSPMD_RESIDENT_REL,
+         batch=GSPMD_SERVE["batch"], max_len=GSPMD_SERVE["max_len"],
+         prompt_lens=list(GSPMD_SERVE["prompt_lens"]), runs=runs,
+         nvidia_smi=card)
+    return {"flash_attention": launches}
 
 
 def mesh_compress_rank(rounds: int) -> dict:
@@ -4672,6 +4973,9 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
     # the mesh slice: the multi-device paths over the card's ranks, their
     # launches counted in the ranks, from 0
     mesh_launches = phase_mesh_serve(dev, card)
+    torch.cuda.empty_cache()
+    mesh_launches["flash_attention"] += phase_mesh_gspmd_serve(
+        dev, card)["flash_attention"]
     mesh_launches.update(phase_mesh_fleet(card))
     phase_mesh_compress(card)
     for row in kernels:

@@ -5,7 +5,8 @@ for bit before any timing.
 PyTorch port of `benchmarks/perf_sweep.py`, at its sizes:
 
 1. **Stack-distance fast path vs the reference machine** on the Fig. 6
-   grid ({3 scenarios x 3 miss latencies x 5 FM benchmarks} @ 120k steps).
+   grid ({3 scenarios x 3 miss latencies x 5 FM benchmarks} @ 120k steps;
+   the reference machine steps its 45 cells as the lanes of one loop).
 2. **The current step vs the first step design** on a preempted P=4
    fleet: the first step (dependent double gather per step, two separate
    `slots.lookup` calls) is frozen below as `_legacy_sweep`, a torch step
@@ -106,13 +107,52 @@ def _fig6_grid(fleet, path: str, device, steps: int | None = None):
         device=device) for _, scen in FIG6_SCENARIOS]
 
 
+def _fig6_grid_scan(fleet, device, steps: int | None = None) -> list:
+    """`_fig6_grid(fleet, "scan", ...)` as one reference-machine loop:
+    every (scenario, benchmark, latency) cell a lane, each scenario's
+    slot count masking a disambiguator of the largest (as `sweep_fleet`'s
+    scan path masks its slot counts), each scenario's streams gathered
+    through its own tag table.  The same results, one step loop instead
+    of three."""
+    steps = steps or FIG6_TRACE_LEN
+    sched = simulator.SchedulerConfig.no_preempt()
+    fleet = torch.as_tensor(fleet, dtype=torch.int32, device=device)
+    nb = fleet.shape[0]
+    streams = [simulator._gather(fleet, simulator.fleet_tag_table(scen, 1))
+               for _, scen in FIG6_SCENARIOS]
+    ptags = torch.cat([t for t, _ in streams])       # (S * B, 1, N)
+    pcosts = torch.cat([c for _, c in streams])
+    counts = torch.as_tensor([scen.num_slots for _, scen in FIG6_SCENARIOS],
+                             dtype=torch.int32, device=device)
+    lats = torch.as_tensor(FIG6_LATENCIES, dtype=torch.int32, device=device)
+    shape = (len(FIG6_SCENARIOS), nb, lats.shape[0])
+    si, bi, li = (x.reshape(-1) for x in torch.meshgrid(
+        *(torch.arange(n, device=device) for n in shape), indexing="ij"))
+    lanes = si.shape[0]
+    final = simulator._scan_lanes(
+        ptags, pcosts, si * nb + bi, lats[li], counts[si],
+        torch.as_tensor(sched.quanta(1), dtype=torch.int32,
+                        device=device)[None].expand(lanes, 1),
+        torch.as_tensor(sched.schedule(1), dtype=torch.int32,
+                        device=device),
+        sched.handler_cycles, 100,
+        simulator._init_lanes(lanes, 1, int(counts.max()), 64, device),
+        steps)
+    # each scenario's (B, K=1, L, P) result, as `sweep_fleet` returns it
+    cut = lambda x: x.reshape(shape + x.shape[1:])  # noqa: E731
+    res = [cut(x) for x in (final.cycles, final.instrs, final.misses,
+                            final.bs_misses, final.switches)]
+    return [simulator.FleetResult(*(x[i][:, None] for x in res))
+            for i in range(len(FIG6_SCENARIOS))]
+
+
 def bench_fig6_grid(device="cuda") -> dict:
     dev = resolve_device(device)
     fleet = np.stack([traces.build_trace(n, FIG6_TRACE_LEN)
                       for n in traces.FM_BENCHES])[:, None, :]
     scan_r, scan_s = _once(
-        lambda: _fig6_grid(fleet, "scan", dev),
-        lambda: _fig6_grid(fleet, "scan", dev, simulator.SCAN_GRAPH_STEPS),
+        lambda: _fig6_grid_scan(fleet, dev),
+        lambda: _fig6_grid_scan(fleet, dev, simulator.SCAN_GRAPH_STEPS),
         dev)
     fast = lambda: _fig6_grid(fleet, "stackdist", dev)  # noqa: E731
     # correctness first: the two engines must agree bit for bit

@@ -5,7 +5,10 @@
 // o = softmax(q k^T * dh^-0.5, masked) v for q (B, Tq, H, D) and k/v
 // (B, Tk, KH, D), query head h reading kv head h / (H / KH); key kp is
 // visible to query qp when kp < Tk, qp >= kp (causal) and kp > qp - window
-// (window > 0).  Positions of q and k both start at 0.  Masked scores are
+// (window > 0).  Positions of k start at 0, those of q at q_off (0 for a
+// whole prompt; a sequence-parallel rank's first row's position for its
+// block of the queries against the whole K/V): the mask and the tile
+// bounds read q row r at position r + q_off.  Masked scores are
 // -1e30 and the softmax is online over key tiles with f32 running (m, l,
 // acc) per row, as in the Pallas kernel; out = acc / max(l, 1e-30), cast
 // to q's type.  A row that sees no key (with a window, when Tq >= Tk +
@@ -98,7 +101,7 @@ struct Params {
   const T* v;
   T* o;                                 // (B, Tq, H, D), contiguous
   long long qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh;
-  int Tq, Tk, H, KH, causal, window;
+  int Tq, Tk, H, KH, causal, window, q_off;
   float scale;
 };
 
@@ -115,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Params<T> p) {
   const int kh = h / (p.H / p.KH);
   const int lane = threadIdx.x & 31;
   const int r = threadIdx.x / kTPR, c = threadIdx.x % kTPR;
-  const int qpos = q_lo + r;
+  const int row = q_lo + r, qpos = row + p.q_off;
 
   attn::load_rows<T, D, kThreads>(Qs, p.q + b * p.qsb + h * p.qsh, p.qst,
                                   q_lo, kBQ, p.Tq, p.scale);
@@ -124,11 +127,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Params<T> p) {
 
   // the key tiles any row of this q tile can see
   const int nk = (p.Tk + kBK - 1) / kBK;
+  const int p_lo = q_lo + p.q_off;
   int kb_end = nk;
-  if (p.causal) kb_end = min(nk, min(q_lo + kBQ - 1, p.Tq - 1) / kBK + 1);
+  if (p.causal)
+    kb_end = min(nk, (min(q_lo + kBQ - 1, p.Tq - 1) + p.q_off) / kBK + 1);
   int kb_begin = 0;
-  if (p.window > 0 && q_lo - p.window + 1 > 0)
-    kb_begin = (q_lo - p.window + 1) / kBK;
+  if (p.window > 0 && p_lo - p.window + 1 > 0)
+    kb_begin = (p_lo - p.window + 1) / kBK;
 
   float m_i = kNegInf, l_i = 0.f;       // l_i: this thread's keys only
   float acc[D / 4];                     // columns 4 (c + kTPR i) + 0..3
@@ -213,9 +218,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Params<T> p) {
   float l = l_i;
   l += __shfl_xor_sync(kFull, l, 1);
   l += __shfl_xor_sync(kFull, l, 2);
-  if (qpos < p.Tq) {
+  if (row < p.Tq) {
     const float den = fmaxf(l, 1e-30f);
-    T* orow = p.o + ((static_cast<long long>(b) * p.Tq + qpos) * p.H + h) * D;
+    T* orow = p.o + ((static_cast<long long>(b) * p.Tq + row) * p.H + h) * D;
 #pragma unroll
     for (int i = 0; i < D / 16; ++i) {
       attn::IO<T>::store4(orow + 4 * (c + kTPR * i), acc[4 * i] / den,
@@ -240,11 +245,12 @@ int launch(const Params<T>& p, int B, cudaStream_t stream) {
 template <typename T>
 int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
              int Tq, int Tk, int H, int KH, int D, const long long* st,
-             int causal, int window, float scale, cudaStream_t stream) {
+             int causal, int window, int q_off, float scale,
+             cudaStream_t stream) {
   Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
               static_cast<const T*>(v), static_cast<T*>(o),
               st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-              Tq, Tk, H, KH, causal, window, scale};
+              Tq, Tk, H, KH, causal, window, q_off, scale};
   if (D == 64) return launch<T, 64>(p, B, stream);
   if (D == 128) return launch<T, 128>(p, B, stream);
   if (D == 256) return launch<T, 256>(p, B, stream);
@@ -287,7 +293,7 @@ struct Tile {
 
 struct Shape {
   bf16* o;                             // (B, Tq, H, D), contiguous
-  int Tq, Tk, H, KH, causal, window;
+  int Tq, Tk, H, KH, causal, window, q_off;
   float scale_log2;                    // dh^-0.5 * log2(e)
 };
 
@@ -378,11 +384,13 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
 
   // the key tiles any row of this q tile can see
   const int nk = (p.Tk + BK - 1) / BK;
+  const int p_lo = q_lo + p.q_off;
   int kb_end = nk;
-  if (p.causal) kb_end = min(nk, min(q_lo + kBQ - 1, p.Tq - 1) / BK + 1);
+  if (p.causal)
+    kb_end = min(nk, (min(q_lo + kBQ - 1, p.Tq - 1) + p.q_off) / BK + 1);
   int kb_begin = 0;
-  if (p.window > 0 && q_lo - p.window + 1 > 0)
-    kb_begin = (q_lo - p.window + 1) / BK;
+  if (p.window > 0 && p_lo - p.window + 1 > 0)
+    kb_begin = (p_lo - p.window + 1) / BK;
   const int n = kb_end - kb_begin;
 
   if (threadIdx.x == 0) {
@@ -430,10 +438,13 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int t = threadIdx.x;
     const int cw = wg;                            // consumer warpgroup
     const int warp = (t / 32) % 4, lane = t % 32;
-    const int q_min = q_lo + 64 * cw, q_max = q_min + 63;
+    // the positions of this warpgroup's first and last rows
+    const int q_min = q_lo + 64 * cw + p.q_off, q_max = q_min + 63;
     // this thread's rows r0 and r0 + 8, and columns cq, cq + 1 of each
-    // 8-column block of S and O (the wgmma accumulator layout)
-    const int r0 = q_min + 16 * warp + lane / 4;
+    // 8-column block of S and O (the wgmma accumulator layout); rp its
+    // position
+    const int r0 = q_lo + 64 * cw + 16 * warp + lane / 4;
+    const int rp = r0 + p.q_off;
     const int cq = 2 * (lane % 4);
     const bf16* Qw = Qs + 64 * cw * 64;
 
@@ -471,10 +482,10 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
       if (k_lo + BK > p.Tk || (p.causal && k_lo + BK - 1 > q_min) ||
           (p.window > 0 && k_lo <= q_max - p.window)) {
         const int k0 = k_lo + cq;
-        const int lo = (p.window > 0 ? r0 - p.window + 1 : 0) - k0;
-        const int hi = (p.causal ? min(p.Tk, r0 + 1) : p.Tk) - k0;
+        const int lo = (p.window > 0 ? rp - p.window + 1 : 0) - k0;
+        const int hi = (p.causal ? min(p.Tk, rp + 1) : p.Tk) - k0;
         const int lo8 = lo + (p.window > 0 ? 8 : 0);
-        const int hi8 = (p.causal ? min(p.Tk, r0 + 9) : p.Tk) - k0;
+        const int hi8 = (p.causal ? min(p.Tk, rp + 9) : p.Tk) - k0;
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -630,7 +641,7 @@ constexpr int kMapError = 10000;
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int KH, const long long* st, int causal,
-           int window, float scale, cudaStream_t stream) {
+           int window, int q_off, float scale, cudaStream_t stream) {
   using C = Tile<D>;
   // (an empty k/v loads no tile; its descriptor only needs to be valid)
   const int tk = Tk > 0 ? Tk : 1;
@@ -646,7 +657,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Shape p{static_cast<bf16*>(o), Tq, Tk, H, KH, causal, window,
-                scale * kLog2e};
+                q_off, scale * kLog2e};
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_kernel_wgmma<D><<<grid, kThreads, C::kSmem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
@@ -654,16 +665,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int Tq, int Tk, int H, int KH, int D, const long long* st,
-             int causal, int window, float scale, cudaStream_t stream) {
+             int causal, int window, int q_off, float scale,
+             cudaStream_t stream) {
   if (D == 64)
     return launch<64>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, window,
-                      scale, stream);
+                      q_off, scale, stream);
   if (D == 128)
     return launch<128>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, window,
-                       scale, stream);
+                       q_off, scale, stream);
   if (D == 256)
     return launch<256>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, window,
-                       scale, stream);
+                       q_off, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -686,23 +698,25 @@ extern "C" size_t flash_attention_smem_bytes(int D, int dtype) {
 // o (B, Tq, H, D) contiguous <- attention of q over k/v on `stream`.
 // `strides` holds the (batch, position, head) element strides of q, k, v
 // in that order; the last dimension of each is contiguous.  dtype: 0 f32,
-// 1 bf16; D: 64, 128 or 256.  Returns the CUDA error of the launch (0 on
-// success), or 10000 + the CUresult of a TMA descriptor the driver
-// refused; never synchronises.
+// 1 bf16; D: 64, 128 or 256; q_off >= 0 the position of q's first row.
+// Returns the CUDA error of the launch (0 on success), or 10000 + the
+// CUresult of a TMA descriptor the driver refused; never synchronises.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int Tq, int Tk, int H, int KH,
                                       int D, const long long* strides,
-                                      int causal, int window, float scale,
-                                      void* stream) {
+                                      int causal, int window, int q_off,
+                                      float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || H <= 0) return 0;
-  if (KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (KH <= 0 || H % KH != 0 || q_off < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return simt::dispatch_f32<float>(q, k, v, o, B, Tq, Tk, H, KH, D,
-                                    strides, causal, window, scale, s);
+                                    strides, causal, window, q_off, scale,
+                                    s);
   if (dtype == 1)
     return tc::dispatch(q, k, v, o, B, Tq, Tk, H, KH, D, strides, causal,
-                        window, scale, s);
+                        window, q_off, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,9 @@ JAX models run) and the Pallas kernel
   `q_offset`, `kv_len`, `kv_start` and `window` masks; q is scaled in its
   own dtype, then cast to f32, as there.  It runs on any device.
 * the CUDA kernel `csrc/flash_attention.cu` for `sm_90a` (causal or not,
-  sliding window, GQA, any sequence length, head dim 64/128/256): bf16
+  sliding window, GQA, any sequence length, head dim 64/128/256, q's
+  rows at positions from `q_offset`: a sequence block of the queries
+  against the whole K/V, as a sequence-parallel plan runs it): bf16
   on the tensor cores (`wgmma` on TMA-fed tiles, the scores scaled by
   dh^-0.5 in f32, P split into bf16 hi + lo parts for P V), f32 on the
   CUDA cores (q scaled in f32, as the Pallas kernel does).  With bf16 inputs and head
@@ -103,32 +105,38 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def visible_pairs(tq: int, tk: int, causal: bool = True,
-                  window: int = 0) -> int:
-    """(query, key) pairs a prompt attends: query i (from position 0)
-    sees keys up to i, within `window`, when causal; all tk otherwise."""
+                  window: int = 0, q_offset: int = 0) -> int:
+    """(query, key) pairs a prompt attends: query i (at position
+    q_offset + i) sees keys up to its position, within `window`, when
+    causal; all tk otherwise."""
     if not causal:
         return tq * tk
     cap = min(tk, window) if window else tk
-    if tq <= cap:
-        return tq * (tq + 1) // 2
-    return cap * (cap + 1) // 2 + (tq - cap) * cap
+
+    def upto(n: int) -> int:     # the pairs of the queries before n
+        if n <= cap:
+            return n * (n + 1) // 2
+        return cap * (cap + 1) // 2 + (n - cap) * cap
+
+    return upto(q_offset + tq) - upto(q_offset)
 
 
 def cost(b: int, tq: int, tk: int, h: int, kh: int, dh: int,
-         dtype: torch.dtype, *, causal: bool = True, window: int = 0) -> dict:
+         dtype: torch.dtype, *, causal: bool = True, window: int = 0,
+         q_offset: int = 0) -> dict:
     """The kernel's count (`analysis.cost.work`): 4 B H Dh FLOPs a visible
     pair (the two products) in `dtype`'s class, and q, k, v read and the
     output written once."""
     elem = torch.empty((), dtype=dtype).element_size()
-    return _cost.work(4 * b * h * dh * visible_pairs(tq, tk, causal, window),
-                      _cost.dtype_class(dtype),
+    pairs = visible_pairs(tq, tk, causal, window, q_offset)
+    return _cost.work(4 * b * h * dh * pairs, _cost.dtype_class(dtype),
                       elem * b * (2 * tq * h + 2 * tk * kh) * dh)
 
 
-def _work(q, k, v, *, causal: bool, window: int) -> dict:
+def _work(q, k, v, *, causal: bool, window: int, q_offset: int = 0) -> dict:
     b, tq, h, dh = q.shape
     return cost(b, tq, k.shape[1], h, k.shape[2], dh, q.dtype, causal=causal,
-                window=window)
+                window=window, q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +153,7 @@ def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
         [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
-        + [ci, ci, ctypes.c_float, vp])
+        + [ci, ci, ci, ctypes.c_float, vp])
     lib.flash_attention_launch.restype = ci
     lib.flash_attention_smem_bytes.argtypes = [ci, ci]
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
@@ -175,7 +183,8 @@ def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
 
 
 @common.on_tensor_device
-def _launch(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+def _launch(q, k, v, *, causal: bool, window: int, q_offset: int = 0
+            ) -> torch.Tensor:
     """Check the operands, allocate the output and launch the kernel on
     the current stream."""
     b, tq, h, dh = q.shape
@@ -191,6 +200,8 @@ def _launch(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
     tk, kh = k.shape[1], k.shape[2]
     if kh < 1 or h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset}: expected >= 0")
     lib = common.library(SOURCE, _declare)
     out = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -199,7 +210,7 @@ def _launch(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, tq, tk, h, kh, dh, strides, int(bool(causal)),
-        int(window), dh ** -0.5, stream)
+        int(window), int(q_offset), dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
     return out
@@ -213,7 +224,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (see `flash_attention_plain` for the arguments).
 
     CUDA tensors launch the flash kernel, which covers the prefill form
-    (`q_offset` 0, no `kv_len`/`kv_start`), as the Pallas kernel does;
+    (no `kv_len`/`kv_start`, as the Pallas kernel) at any `q_offset`;
     the other form raises `NotImplementedError` on CUDA.  CPU tensors, or
     `use_kernel="plain"`, run `flash_attention_plain`;
     `use_kernel="kernel"` raises on CPU.  Under autograd the kernel's
@@ -226,35 +237,42 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block=block, q_offset=q_offset,
                                      kv_len=kv_len, kv_start=kv_start)
-    if q_offset or kv_len is not None or kv_start is not None:
+    if kv_len is not None or kv_start is not None:
         raise NotImplementedError(
-            "the flash kernel takes q_offset=0 and no kv_len/kv_start, as "
-            "the Pallas kernel does: attend over the whole sequence with "
-            "causal=True and a window instead")
+            "the flash kernel takes no kv_len/kv_start, as the Pallas "
+            "kernel: attend over the whole sequence with causal=True and a "
+            "window instead")
+    q_offset = int(q_offset)
     if how == "stand-in":
         plain = functools.partial(flash_attention_plain, causal=causal,
-                                  window=window, block=block)
+                                  window=window, block=block,
+                                  q_offset=q_offset)
         return common.with_plain_vjp(flash_attention, common.stand_in(
             "flash_attention", functools.partial(
-                _work, causal=causal, window=window), plain,
-            lambda q, k, v: torch.empty_like(q)), plain, q, k, v)
+                _work, causal=causal, window=window, q_offset=q_offset),
+            plain, lambda q, k, v: torch.empty_like(q)), plain, q, k, v)
     return _with_plain_vjp(q, k, v, causal=causal, window=window,
-                           block=block)
+                           block=block, q_offset=q_offset)
 
 
-def _with_plain_vjp(q, k, v, *, causal: bool, window: int, block: int):
+def _with_plain_vjp(q, k, v, *, causal: bool, window: int, block: int,
+                    q_offset: int = 0):
     """The kernel, with `flash_attention_plain`'s gradient."""
     return common.with_plain_vjp(
         flash_attention,
-        functools.partial(_kernel, causal=causal, window=window),
+        functools.partial(_kernel, causal=causal, window=window,
+                          q_offset=q_offset),
         functools.partial(flash_attention_plain, causal=causal,
-                          window=window, block=block), q, k, v)
+                          window=window, block=block, q_offset=q_offset),
+        q, k, v)
 
 
-def _kernel(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+def _kernel(q, k, v, *, causal: bool, window: int, q_offset: int = 0
+            ) -> torch.Tensor:
     with _cost.kernel("flash_attention", lambda: _work(
-            q, k, v, causal=causal, window=window)):
-        out = _launch(q, k, v, causal=causal, window=window)
+            q, k, v, causal=causal, window=window, q_offset=q_offset)):
+        out = _launch(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset)
     flash_attention.launches += 1
     return out
 

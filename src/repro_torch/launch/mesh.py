@@ -9,7 +9,8 @@ in row-major order: rank r sits at `np.unravel_index(r, sizes)`, as a
 device of `jax.make_mesh` does.  Each set of axes has its process groups
 (one a coordinate of the other axes, made at first use, the same order on
 every rank), and the bodies reach them only through `axis_index`,
-`axis_size`, `all_reduce` (sum or max) and `all_gather` along a dim.
+`axis_size`, `all_reduce` (sum or max), and `all_gather` and
+`reduce_scatter` along a dim.
 
 Backends: NCCL with one card a rank on a machine of two or more cards;
 gloo on the CPU, and gloo for ranks that share one card, where the
@@ -187,6 +188,36 @@ class Mesh:
         # all_gather fills by group rank, i.e. by ascending global rank
         by_rank = dict(zip(sorted(members), parts))
         return back(torch.cat([by_rank[r] for r in members], dim=dim))
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """This rank's block along `dim` of the sum of x over the ranks
+        along `axes`: the block of index i (the i-th of `axis_size(axes)`
+        equal blocks) on the rank of index i, as `all_gather` puts them
+        back.  NCCL runs the native collective; gloo has none for every
+        dtype and device, so there it is `all_reduce` followed by this
+        rank's slice."""
+        names = self._check(axes)
+        n = self.axis_size(names)
+        if x.shape[dim] % n:
+            raise ValueError(f"a dimension of {x.shape[dim]} does not split "
+                             f"over {names} ({n} ranks)")
+        if n == 1:
+            return x.clone()
+        size = x.shape[dim] // n
+        i = self.axis_index(names)
+        if self.backend != "nccl":
+            return self.all_reduce(x, names).narrow(dim, i * size,
+                                                    size).contiguous()
+        group, members = self._group(names)
+        buf, back = self._staged(x)
+        # the group's ranks take the blocks in ascending global rank
+        order = sorted(members)
+        parts = [t.contiguous() for t in buf.split(size, dim=dim)]
+        ins = [parts[members.index(r)] for r in order]
+        out = torch.empty_like(ins[0])
+        dist.reduce_scatter(out, ins, group=group)
+        return back(out)
 
 
 def make_host_mesh(data: int = 2, model: int = 4) -> Mesh:

@@ -182,16 +182,18 @@ def init_attention(gen: torch.Generator, cfg, device="cuda"):
 
 
 def qkv(p, x, cfg, positions):
-    """Project + position-encode. positions: (B,T) ids or (B,T,3) for mrope."""
+    """Project + position-encode. positions: (B,T) ids or (B,T,3) for mrope.
+    `p` may hold a block of the heads' columns (and of their biases)."""
     b, t, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    # -1: a rank of a tensor-parallel plan holds a block of the heads
+    q = q.reshape(b, t, -1, cfg.head_dim)
+    k = k.reshape(b, t, -1, cfg.head_dim)
+    v = v.reshape(b, t, -1, cfg.head_dim)
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

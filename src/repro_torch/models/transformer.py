@@ -52,19 +52,29 @@ CPU tensors.
 Sharding: `shd` is the reference's duck-typed context, here a
 `repro_torch.sharding.ShardingPlan` over a `launch.mesh.Mesh` of the
 job's ranks (anything else raises `TypeError`), or None: the one-device
-model.  Under a plan every rank runs the model on replicated activations
-and the plan's blocks of what the reference's `shard_map` sections take
-sharded: each MoE block runs `moe.moe_apply_sharded` on its rows of the
-batch and its experts (`plan.shard_params` cuts them), and a decode step
-attends through `kvcache.decode_attention_sharded` over its block of
-each full-attention cache (`init_cache(..., shd=plan)` allocates only
-that block; batch over the data axes, sequence over `model`), the
-rows all-gathered back over the data axes.  Prefill returns the whole
-prompt's cache on every rank (`plan.shard_cache` cuts a rank's block).
-Head-TP prefill expands GQA K/V to one head a query head first
-(`_expand_kv`), as the reference.  Dense weights stay whole, `ctx.act`
-returns its activation; training under a plan is not ported (`loss_fn`
-raises).
+model.  Under a plan every rank computes its blocks of what the
+reference's GSPMD program computes, the collectives placed where the
+specs imply them: every rank takes the whole batch and keeps its rows
+(`plan.shard_inputs`), and its blocks of the weights
+(`plan.shard_params`); each layer's FSDP blocks are all-gathered over
+the data axes just before it runs (`plan.gather_data`) and dropped
+after it; every tagged activation is relaid by `ctx.act` to the plan's
+`act_spec` (`plan.act`).  So the embedding is a masked lookup into the
+rank's vocab block summed over `model`; `wq`/`wi`/`wg` are
+column-parallel, `wo` row-parallel with its sum reduce-scattered back
+to the sequence-sharded residual stream (Megatron-SP) or all-reduced;
+the `seq` strategy runs flash on the rank's query rows at their global
+positions (`q_offset`, and the RoPE positions of its block) against the
+all-gathered K/V; head-TP expands GQA K/V to one head a query head
+first (`_expand_kv`), as the reference; the logits are vocab-sharded.
+MoE blocks run `moe.moe_apply_sharded` on the rank's rows and experts.
+A decode step attends through `kvcache.decode_attention_sharded` over
+the rank's block of each full-attention cache (`init_cache(...,
+shd=plan)` allocates only that block; batch over the data axes,
+sequence over `model`), and prefill returns each rank's cache block in
+that decode layout (`plan.cache_specs`).  Returned logits are the
+rank's block by `act_spec("logits")`.  The recurrent and local-attention
+blocks raise under a plan, and so does training (`loss_fn`).
 """
 from __future__ import annotations
 
@@ -79,7 +89,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache, layers, moe, rglru, rwkv6
-from repro_torch.sharding.partition import ShardingPlan, map_with_path
+from repro_torch.sharding.partition import (ShardingPlan, map_with_path,
+                                           zip_map)
 from repro_torch.tree_util import tree_map
 
 __all__ = ["segments", "init_params", "init_cache", "Ctx", "apply_block",
@@ -93,6 +104,16 @@ def check_plan(shd) -> ShardingPlan | None:
             f"shd must be a repro_torch.sharding.ShardingPlan or None, not "
             f"{type(shd).__module__}.{type(shd).__name__}")
     return shd
+
+
+def _check_layouts(cfg, plan) -> None:
+    """Raise for the blocks whose layouts under a plan are not ported."""
+    types = {t for ts, _ in segments(cfg) for t in ts}
+    if plan is not None and types - {"attn", "moe"}:
+        raise NotImplementedError(
+            f"{cfg.name} under a ShardingPlan: the layouts of its "
+            f"{sorted(types - {'attn', 'moe'})} blocks are not ported; "
+            f"run it with shd=None")
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +258,7 @@ class Ctx(NamedTuple):
     use_kernel: Any = None       # None/"auto" | "kernel" | "plain"
     router_bias: Any = None      # (E,) slot-hit routing bias (serving)
     shd: Any = None              # a ShardingPlan or None
+    bt: tuple = ()               # under a plan: the global (B, T)
 
     @property
     def mesh(self):
@@ -246,21 +268,17 @@ class Ctx(NamedTuple):
     def data_axes(self):
         return getattr(self.shd, "data_axes", ("data",))
 
-    def act(self, x, kind):
-        return self.shd.act(x, kind) if self.shd is not None else x
-
-    def rows(self, x):
-        """This rank's rows of a replicated batch (all of them without a
-        plan)."""
+    def act(self, x, kind, have=None, partial=None):
+        """x relaid to the plan's layout of `kind` (`ShardingPlan.act`);
+        x itself without a plan."""
         if self.shd is None:
             return x
-        return x[self.shd.block(x.shape[0], self.shd.dp)]
+        return self.shd.act(x, kind, have, partial)
 
-    def gather_rows(self, x):
-        """The ranks' rows all-gathered back over the data axes."""
-        if self.shd is None:
-            return x
-        return self.mesh.all_gather(x, self.data_axes, dim=0)
+    def spec(self, kind, *dims) -> tuple:
+        """Under a plan, the spec of a `kind` activation of global shape
+        (B, T, *dims)."""
+        return self.shd.spec(kind, self.bt + dims)
 
 
 def _prefill_cache(cfg, k, v, window):
@@ -305,52 +323,95 @@ def _expand_kv(k, g: int):
         b, t, kh * g, dh)
 
 
-def _attention(p, x, cache, ctx, window: int):
-    cfg = ctx.cfg
+def _local_qkv(p, ps, ctx):
+    """The attention weights a rank computes with: under a plan each bias
+    cut to its weight's block of columns."""
+    if ctx.shd is None:
+        return p
+    return {k: ctx.shd.relayout(w, ps[k], ps["w" + k[1]][1:])
+            if k.startswith("b") else w for k, w in p.items()}
+
+
+def _attention(p, x, cache, ctx, window: int, ps=None):
+    """One attention sub-block on this rank's blocks: x (and the output)
+    laid out as "hidden"; `ps` the compute specs of `p` under a plan."""
+    cfg, plan = ctx.cfg, ctx.shd
     b, t, _ = x.shape
+    hid = ain = None
+    if plan is not None:
+        hid = ctx.spec("hidden", cfg.d_model)
+        ain = ctx.spec("attn_in", cfg.d_model)
     h = layers.rmsnorm(x, p["ln1"])
-    h = ctx.act(h, "attn_in")
+    h = ctx.act(h, "attn_in", hid)
     pos = ctx.positions
     if ctx.mode == "decode":
         rope_pos = pos[:, None] if cfg.pos == "rope" else \
             pos[:, None, None].expand(b, 1, 3)
+    elif plan is not None:
+        # the global positions of this rank's rows and sequence block
+        rope_pos = plan.relayout(pos, (ain[0],), ain[:2])
     else:
         rope_pos = pos
-    q, k, v = layers.qkv(p["attn"], h, cfg, rope_pos)
-    q = ctx.act(q, "q_heads")
+    q, k, v = layers.qkv(_local_qkv(p["attn"], ps and ps["attn"], ctx), h,
+                         cfg, rope_pos)
+    qs = ks = None
+    if plan is not None:
+        # a column block of wq is a block of the heads
+        qs = ain[:2] + (ps["attn"]["wq"][1], None)
+        ks = ain[:2] + (ps["attn"]["wk"][1], None)
+    q = ctx.act(q, "q_heads", qs)
+    if plan is not None:
+        qh = ctx.spec("q_heads", cfg.num_heads, cfg.head_dim)
     if ctx.mode == "decode":
         if window:
             o, new_cache = kvcache.window_decode_attention(
                 q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
-        elif ctx.mesh is not None:
-            o, new_cache = kvcache.decode_attention(
-                ctx.rows(q), cache, ctx.rows(k), ctx.rows(v), ctx.rows(pos),
-                cfg, ctx.mesh, data_axes=ctx.data_axes)
-            o = ctx.gather_rows(o)
         else:
             o, new_cache = kvcache.decode_attention(
-                q, cache, k, v, pos, cfg, use_kernel=ctx.use_kernel)
+                q, cache, k, v, pos, cfg, ctx.mesh, use_kernel=ctx.use_kernel,
+                data_axes=ctx.data_axes)
     else:
-        k = ctx.act(k, "kv_heads")
-        v = ctx.act(v, "kv_heads")
+        kc, vc = k, v
+        k = ctx.act(k, "kv_heads", ks)
+        v = ctx.act(v, "kv_heads", ks)
         kq, vq = k, v
-        if (ctx.shd is not None and ctx.shd.strategy == "heads"
-                and cfg.q_per_kv > 1):
-            # GQA under head-TP: one kv head a query head before the
-            # kernel, as the reference (whose sharded reshape needs it)
-            kq = ctx.act(_expand_kv(k, cfg.q_per_kv), "q_heads")
-            vq = ctx.act(_expand_kv(v, cfg.q_per_kv), "q_heads")
+        q_offset = 0
+        if plan is not None:
+            kvh = ctx.spec("kv_heads", cfg.num_kv_heads, cfg.head_dim)
+            if plan.strategy == "heads" and cfg.q_per_kv > 1:
+                # GQA under head-TP: one kv head a query head before the
+                # kernel, as the reference (whose sharded reshape needs it)
+                kq = ctx.act(_expand_kv(k, cfg.q_per_kv), "q_heads", kvh)
+                vq = ctx.act(_expand_kv(v, cfg.q_per_kv), "q_heads", kvh)
+            else:   # this rank's query heads' kv heads
+                kq = plan.relayout(k, kvh, kvh[:2] + qh[2:])
+                vq = plan.relayout(v, kvh, kvh[:2] + qh[2:])
+            # a sequence block of q sits at its global positions
+            q_offset = plan.block(ctx.bt[1], qh[1]).start or 0
         if window:
             o = _local_attention(q, kq, vq, window, ctx.use_kernel)
         else:
             o = layers.flash_attention(q, kq, vq, causal=True,
+                                       q_offset=q_offset,
                                        use_kernel=ctx.use_kernel)
         new_cache = None
         if ctx.mode == "prefill":
-            new_cache = _prefill_cache(cfg, k, v, window)
-    o = o.reshape(b, t, -1)
-    o = ctx.act(o, "attn_out")
-    return ctx.act(o @ p["attn"]["wo"], "hidden"), new_cache
+            if plan is not None:   # the decode layout: sequence over model
+                cs = plan.cache_spec("0/0/k", (1,) + ctx.bt + tuple(
+                    kc.shape[2:]))[1:]
+                kc = plan.relayout(kc, ks, cs)
+                vc = plan.relayout(vc, ks, cs)
+            new_cache = _prefill_cache(cfg, kc, vc, window)
+    o = o.reshape(b, o.shape[1], -1)
+    if plan is None:
+        return o @ p["attn"]["wo"], new_cache
+    aos = ctx.spec("attn_out", cfg.num_heads * cfg.head_dim)
+    o = ctx.act(o, "attn_out", qh[:3])
+    # row-parallel wo: this rank's rows of o, then a sum over them
+    rows = ps["attn"]["wo"][0]
+    o = plan.relayout(o, aos, aos[:2] + (rows,))
+    return ctx.act(o @ p["attn"]["wo"], "hidden", aos[:2] + (None,),
+                   partial=rows), new_cache
 
 
 def _carry_state(cache, new, ctx):
@@ -364,25 +425,47 @@ def _carry_state(cache, new, ctx):
     return cache
 
 
-def apply_block(btype, p, x, cache, ctx):
+def _mlp_sum(p, h, ctx, ps=None, name="mlp"):
+    """An MLP on `h` (laid out as "mlp_in") into the "hidden" layout:
+    under a plan wi/wg are column-parallel and wo row-parallel, the
+    sum over wo's rows taken by `ctx.act`."""
+    out = layers.apply_mlp(p[name], h, ctx.cfg)
+    if ctx.shd is None:
+        return out
+    return ctx.act(out, "hidden", ctx.spec("mlp_in", ctx.cfg.d_model),
+                   partial=ps[name]["wo"][0])
+
+
+def apply_block(btype, p, x, cache, ctx, ps=None):
+    """One block on this rank's blocks; `ps` (under a plan) the compute
+    specs of the block's weights `p` (`plan.compute_spec`)."""
     cfg = ctx.cfg
     aux = {}
     if btype in ("attn", "lattn", "moe"):
         window = cfg.window if btype == "lattn" else 0
-        o, new_cache = _attention(p, x, cache, ctx, window)
+        o, new_cache = _attention(p, x, cache, ctx, window, ps)
         x = x + o
         h = layers.rmsnorm(x, p["ln2"])
+        hid = None if ctx.shd is None else ctx.spec("hidden", cfg.d_model)
+        h = ctx.act(h, "mlp_in", hid)
         if btype != "moe":
-            return x + layers.apply_mlp(p["mlp"], h, cfg), new_cache, aux
-        h = ctx.act(h, "mlp_in")
-        mo, aux = moe.moe_apply(p["moe"], ctx.rows(h), cfg, ctx.mesh,
+            return x + _mlp_sum(p, h, ctx, ps), new_cache, aux
+        if ctx.shd is not None:
+            mi = ctx.spec("mlp_in", cfg.d_model)
+            if mi[0] is None and ctx.shd._size(ctx.shd.dp) > 1:
+                raise ValueError(
+                    f"an MoE block under a plan needs its batch of "
+                    f"{ctx.bt[0]} divisible by the data axes "
+                    f"{ctx.shd.data_axes}")
+        mo, aux = moe.moe_apply(p["moe"], h, cfg, ctx.mesh,
                                 router_bias=ctx.router_bias,
                                 skip_empty=ctx.mode == "decode",
                                 use_kernel=ctx.use_kernel,
                                 data_axes=ctx.data_axes)
-        mo = ctx.gather_rows(mo)
+        if ctx.shd is not None:   # summed over model inside
+            mo = ctx.act(mo, "hidden", mi)
         if cfg.dense_ff_residual:
-            mo = mo + layers.apply_mlp(p["dense"], h, cfg)
+            mo = mo + _mlp_sum(p, h, ctx, ps, "dense")
         return x + mo, new_cache, aux
     if btype == "rwkv":
         st = cache if cache is not None else rwkv6.init_rwkv_state(
@@ -468,12 +551,17 @@ def run_segments(params, x, caches, ctx):
     segment and block, `{"expert_load": (n, E) int32}` for a moe block
     and `{}` for the others.  In train mode each layer runs under
     `cfg.remat`'s checkpoint."""
-    cfg = ctx.cfg
+    cfg, plan = ctx.cfg, ctx.shd
     remat = _remat(cfg) if ctx.mode == "train" else None
     all_caches, all_aux = [], []
     for si, (types, n) in enumerate(segments(cfg)):
         seg_params = _unstack(params["segments"][si], n)
         seg_cache = caches[si] if caches is not None else None
+        if plan is not None:   # a layer's specs: the stacked dim dropped
+            seg_specs = map_with_path(lambda _, spec: spec[1:],
+                                      plan.model_specs()["segments"][si])
+            comp = map_with_path(lambda _, spec: plan.compute_spec(spec),
+                                 seg_specs)
         per_layer, per_aux = [], []
         for i in range(n):
             if remat is not None:
@@ -485,7 +573,14 @@ def run_segments(params, x, caches, ctx):
             for j, bt in enumerate(types):
                 c = _layer(seg_cache[j], i) if seg_cache is not None \
                     else None
-                x, nc, aux = apply_block(bt, seg_params[i][j], x, c, ctx)
+                p, ps = seg_params[i][j], None
+                if plan is not None:
+                    # FSDP: the layer's weights whole over the data axes
+                    # for this block only
+                    p = zip_map(plan.gather_data, p, seg_specs[j])
+                    ps = comp[j]
+                x, nc, aux = apply_block(bt, p, x, c, ctx, ps)
+                del p
                 ncs.append(nc)
                 auxes.append(aux)
             per_layer.append(ncs)
@@ -510,9 +605,26 @@ def _on_device(params, batch) -> dict:
 
 
 def _embed_in(cfg, params, batch, ctx):
-    if cfg.embed_inputs:
+    """The embedded inputs, laid out as "hidden".  Under a plan the
+    embedding is the rank's block of the vocabulary: a masked lookup,
+    summed over the axes that split it."""
+    if not cfg.embed_inputs:
+        x, part = batch["embeds"].to(cfg.torch_dtype), None
+    elif ctx.shd is None:
         return params["embed"][batch["tokens"].long()]
-    return batch["embeds"].to(cfg.torch_dtype)
+    else:
+        emb, part = params["embed"], ctx.shd.model_specs()["embed"][0]
+        ids = batch["tokens"].long()
+        if part is not None:
+            ids = ids - ctx.shd.block(emb.shape[0] * ctx.shd._size(part),
+                                      part).start
+        ok = (ids >= 0) & (ids < emb.shape[0])
+        x = torch.where(ok[..., None], emb[ids.clamp(0, emb.shape[0] - 1)],
+                        0)
+    if ctx.shd is None:
+        return x
+    rows = ctx.spec("hidden", cfg.d_model)[:1]
+    return ctx.act(x, "hidden", rows, partial=part)
 
 
 def _positions_for(cfg, batch, t):
@@ -523,20 +635,46 @@ def _positions_for(cfg, batch, t):
 
 
 def _logits(cfg, params, x, ctx):
+    """Logits of x (B, T, D; under a plan this rank's rows, T and D
+    whole), under a plan this rank's block by `act_spec("logits")`."""
+    plan = ctx.shd
     head = params.get("head")
+    if plan is None:
+        return x @ (params["embed"].T if head is None else head)
+    specs = plan.model_specs()
     if head is None:
-        head = params["embed"].T
-    return x @ head
+        w, cols = params["embed"].T, specs["embed"][0]
+    else:
+        w = plan.gather_data(head, specs["head"])
+        cols = plan.compute_spec(specs["head"])[1]
+    rows = ctx.spec("hidden", cfg.d_model)[:1]
+    return ctx.act(x @ w, "logits", rows + (None, cols))
+
+
+def _shard_batch(cfg, batch, plan) -> tuple[dict, tuple]:
+    """(this rank's rows of every input of `batch` but the router bias,
+    the global (B, T)) under a plan; (batch, ()) without one."""
+    if plan is None:
+        return batch, ()
+    _check_layouts(cfg, plan)
+    x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    rows = {k: v for k, v in batch.items() if k != "router_bias"}
+    return {**batch, **plan.shard_inputs(rows)}, tuple(x.shape[:2])
 
 
 def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
     """Full-sequence pass.  Returns (final-normed hidden (B,T,D), caches,
-    aux, ctx)."""
+    aux, ctx); under a plan (`shd`, a whole batch on every rank) this
+    rank's blocks."""
     plan = check_plan(shd)
-    batch = _on_device(params, batch)
+    if plan is not None and mode == "train":
+        raise NotImplementedError(
+            "the train-mode forward under a ShardingPlan: training under "
+            "a plan is not ported; serve with mode='prefill'")
+    batch, bt = _shard_batch(cfg, _on_device(params, batch), plan)
     t = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
     ctx = Ctx(cfg=cfg, mode=mode, positions=_positions_for(cfg, batch, t),
-              use_kernel=use_kernel, shd=plan)
+              use_kernel=use_kernel, shd=plan, bt=bt)
     x = _embed_in(cfg, params, batch, ctx)
     x, caches, aux = run_segments(params, x, None, ctx)
     x = layers.rmsnorm(x, params["final_norm"])
@@ -590,25 +728,33 @@ def loss_fn(cfg, params, batch, shd=None, use_kernel=None):
 
 
 def prefill(cfg, params, batch, shd=None, use_kernel=None):
-    """Returns (last-token logits (B,1,V), decode-ready cache, aux)."""
+    """Returns (last-token logits (B,1,V), decode-ready cache, aux).
+    Under a plan (`shd`; every rank given the whole batch and its blocks
+    of the weights, `plan.shard_params`) this rank's blocks: of the
+    logits by `act_spec("logits")`, of the cache by `cache_specs` (the
+    decode layout)."""
     x, caches, aux, ctx = forward(cfg, params, batch, shd, mode="prefill",
                                   use_kernel=use_kernel)
-    x = x[:, -1:]
-    return _logits(cfg, params, x, ctx), caches, aux
+    last = x[:, -1:]
+    if ctx.shd is not None:   # the last position's block holds it
+        hid = ctx.spec("hidden", cfg.d_model)
+        last = ctx.shd.relayout(last, hid, hid[:1])[:, -1:]
+    return _logits(cfg, params, last, ctx), caches, aux
 
 
 def decode_step(cfg, params, batch, cache, shd=None, use_kernel=None):
     """One token for every sequence.  batch: tokens/embeds (B,1,...) +
     positions (B,) [+ router_bias (E,) for MoE archs].  Writes the token's
     K/V into `cache` in place and returns (logits (B,1,V), that cache,
-    aux).  Under a plan (`shd`) `cache` holds this rank's blocks
-    (`init_cache(..., shd=plan)`)."""
+    aux).  Under a plan (`shd`) every rank takes the whole batch, its
+    blocks of the weights and of `cache` (`init_cache(..., shd=plan)`),
+    and returns its block of the logits."""
     plan = check_plan(shd)
-    batch = _on_device(params, batch)
+    batch, bt = _shard_batch(cfg, _on_device(params, batch), plan)
     ctx = Ctx(cfg=cfg, mode="decode",
               positions=batch["positions"].to(torch.int32),
               use_kernel=use_kernel, router_bias=batch.get("router_bias"),
-              shd=plan)
+              shd=plan, bt=bt)
     x = _embed_in(cfg, params, batch, ctx)
     x, caches, aux = run_segments(params, x, cache, ctx)
     x = layers.rmsnorm(x, params["final_norm"])

@@ -41,6 +41,7 @@ or model-zoo "<arch>:<phase>" workloads (`repro_torch.workloads`).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,6 +51,7 @@ from repro_torch.core import expert_slots as es
 from repro_torch.core import isa, simulator
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.serve import step as serve_step
 from repro_torch.serve.batching import ContinuousBatcher
 
 __all__ = ["model_batcher", "Tenant", "EngineConfig", "SlotServeEngine",
@@ -63,34 +65,41 @@ def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
     cache in place; the decode callback is one `decode_step` over the
     whole batch, and the next token is the first argmax of its logits.
     `params` live on `device`; both callbacks run under
-    `torch.no_grad()`.  Under a `ShardingPlan` (`shd`, every rank of its
-    mesh calling with the same requests) `params` hold this rank's experts
-    (`shd.shard_params`), each rank allocates and writes only its block
-    of each full-attention cache, and prompts, tokens and logs stay
-    replicated."""
+    `torch.no_grad()`.
+
+    Under a `ShardingPlan` (`shd`, every rank of its mesh calling with
+    the same requests) `params` hold this rank's blocks
+    (`shd.shard_params`), and the steps are `serve.step`'s under the
+    plan's prefill and decode layouts: a prompt is prefilled on every
+    rank in the prefill layout, its cache put back together over `model`
+    and this rank's block of it written into the shared cache, of which
+    each rank holds only its block (rows over the data axes, positions
+    over `model`); a decode step takes the whole batch, cut to this
+    rank's rows, and the next tokens are the argmax over the
+    vocab-sharded logits (the lowest index among equal maxima, as
+    `torch.argmax`), gathered back over the rows.  Prompts, tokens and
+    logs stay replicated."""
     plan = transformer.check_plan(shd)
     dev = resolve_device(device)
-    cache = transformer.init_cache(cfg, batch_size, max_len, dev, shd=plan)
+    if plan is not None:
+        return _plan_batcher(cfg, params, batch_size, max_len, plan, dev,
+                             use_kernel)
+    cache = transformer.init_cache(cfg, batch_size, max_len, dev)
 
     @torch.no_grad()
     def prefill_row(row, tokens):
         t0 = len(tokens)
         _, row_cache, _ = transformer.prefill(
-            cfg, params, {"tokens": np.asarray(tokens)[None, :]}, shd=plan,
+            cfg, params, {"tokens": np.asarray(tokens)[None, :]},
             use_kernel=use_kernel)
-        for si, (seg, row_seg) in enumerate(zip(cache, row_cache)):
-            for j, (dst, src) in enumerate(zip(seg, row_seg)):
+        for seg, row_seg in zip(cache, row_cache):
+            for dst, src in zip(seg, row_seg):
                 for name, d in dst.items():
                     # d: (n, B, ...) shared cache; s: (n, 1, ...) the row's:
                     # a K/V prefix where s has a t0-long time axis, else
                     # (window caches, recurrent states) the whole row
                     s = src[name]
-                    block = None if plan is None else plan.cache_block(
-                        f"{si}/{j}/{name}",
-                        (d.shape[0], batch_size, max_len, *d.shape[3:]))
-                    if block is not None:
-                        _write_block(d, s[:, 0], row, t0, *block)
-                    elif s.dim() >= 3 and s.shape[2] == t0 and \
+                    if s.dim() >= 3 and s.shape[2] == t0 and \
                             d.shape[2] >= t0:
                         d[:, row, :t0] = s[:, 0]
                     else:
@@ -100,11 +109,69 @@ def model_batcher(cfg, params, batch_size: int, max_len: int, shd=None,
     def decode(tokens, positions):
         logits, _, _ = transformer.decode_step(
             cfg, params, {"tokens": tokens, "positions": positions}, cache,
-            shd=plan, use_kernel=use_kernel)
+            use_kernel=use_kernel)
         return torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
 
     return ContinuousBatcher(batch_size, max_len, prefill_row=prefill_row,
                              decode=decode)
+
+
+def _plan_batcher(cfg, params, batch_size: int, max_len: int, plan, dev,
+                  use_kernel) -> ContinuousBatcher:
+    """`model_batcher` under a plan: `serve.step`'s prefill and decode
+    steps under the plan's two layouts."""
+    pre = dataclasses.replace(plan, mode="prefill")
+    dec = dataclasses.replace(plan, mode="decode")
+    prefill_step = serve_step.make_prefill(cfg, pre, use_kernel)
+    decode_step = serve_step.make_decode(cfg, dec, use_kernel)
+    cache = transformer.init_cache(cfg, batch_size, max_len, dev, shd=dec)
+
+    @torch.no_grad()
+    def prefill_row(row, tokens):
+        t0 = len(tokens)
+        _, row_cache, _ = prefill_step(
+            params, {"tokens": np.asarray(tokens)[None, :]})
+        for si, (seg, row_seg) in enumerate(zip(cache, row_cache)):
+            for j, (dst, src) in enumerate(zip(seg, row_seg)):
+                for name, d in dst.items():
+                    path, s = f"{si}/{j}/{name}", src[name]
+                    # the prompt's positions put back together over model
+                    spec = pre.cache_spec(path, (s.shape[0], 1, t0,
+                                                 *s.shape[3:]))
+                    s = pre.relayout(s, spec, spec[:2])
+                    block = dec.cache_block(
+                        path, (d.shape[0], batch_size, max_len,
+                               *d.shape[3:]))
+                    _write_block(d, s[:, 0], row, t0, *block)
+
+    @torch.no_grad()
+    def decode(tokens, positions):
+        logits, _, _ = decode_step(
+            params, cache, {"tokens": tokens, "positions": positions})
+        return _greedy(logits, dec, (batch_size, 1, cfg.vocab))
+
+    return ContinuousBatcher(batch_size, max_len, prefill_row=prefill_row,
+                             decode=decode)
+
+
+def _greedy(logits, plan, shape) -> np.ndarray:
+    """The first argmax over the vocabulary of every row of logits whose
+    global shape is `shape` (B, 1, V), given this rank's block: each
+    rank's maximum and its first index, then the block with the largest
+    maximum (the lowest block among equal ones), gathered over the
+    rows."""
+    spec = plan.spec("logits", shape)
+    x = logits[:, 0]
+    idx = torch.argmax(x, dim=-1)
+    if spec[2] is not None:
+        val = torch.gather(x, -1, idx[:, None])[:, 0].float()
+        idx = idx + plan.block(shape[2], spec[2]).start
+        vals = plan.mesh.all_gather(val[None], spec[2], dim=0)
+        idxs = plan.mesh.all_gather(idx[None], spec[2], dim=0)
+        idx = torch.gather(idxs, 0, torch.argmax(vals, dim=0)[None])[0]
+    if spec[0] is not None:
+        idx = plan.mesh.all_gather(idx, spec[0], dim=0)
+    return idx.cpu().numpy()
 
 
 def _write_block(d, s, row: int, t0: int, rows: slice, seq: slice) -> None:

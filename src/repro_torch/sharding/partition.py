@@ -11,26 +11,40 @@ layout (activations replicated over `model`, full KV caches sharded
 batch -> data, seq -> model); FSDP shards the weights over the data axes
 as well for archs above `FSDP_THRESHOLD` parameters.
 
-What the port places by them in this slice is the explicit-collective
-half of the reference, its `shard_map` sections:
+The reference hands these specs to GSPMD, which places every tensor and
+inserts the collectives.  Here every rank is a process holding its
+blocks, and the plan places them itself:
 
-* the expert weights, sharded over `model` (`shard_params`), each rank
-  running its own experts (`models.moe.moe_apply_sharded`);
-* the full-attention KV caches, batch over the data axes and sequence
-  over `model` (`cache_specs`, `local_shape`, `shard_cache`), each rank
-  attending over its block (`models.kvcache.decode_attention_sharded`).
+* weights: `shard_params` cuts every leaf by `param_specs` (views):
+  column- and row-parallel attention and MLP weights over `model`
+  (`heads`), the experts over `model`, the vocab-sharded embedding and
+  head, and every weight over the data axes under FSDP.  `gather_data`
+  puts a layer's FSDP blocks back together over the data axes just
+  before the layer runs (its `model` blocks stay);
+* activations: `act(x, kind, have, partial)` relayouts a rank's block
+  from the spec it has (`have`; whole when None) to `act_spec(kind)`
+  fitted to the tensor's global shape, the reference's
+  `with_sharding_constraint`: slicing where a dimension becomes split,
+  `all_gather` where it stops being split, and a pending sum over
+  `partial` (a row-parallel product's) reduce-scattered into the
+  dimension that becomes split over those axes, else all-reduced
+  (`relayout` is the general move between two specs);
+* inputs: `input_shardings` gives each input's spec (rows over the data
+  axes), `shard_inputs` cuts a whole batch to this rank's rows;
+* caches: the full-attention KV caches, batch over the data axes and
+  sequence over `model` (`cache_specs`, `local_shape`, `shard_cache`),
+  each rank attending over its block
+  (`models.kvcache.decode_attention_sharded`).
 
-Everything else stays whole on every rank: the dense weights (their
-`param_specs` are computed, not applied) and the activations, which
-`act` returns as given; that is the reference's decode layout.  Laying
-out the dense weights and activations by these specs (tensor, sequence
-and FSDP parallelism) is the GSPMD half, not ported yet.
+The recurrent families' layouts (RG-LRU, RWKV and local-attention
+blocks), training under a plan and ZeRO-1 optimizer states are not
+ported: the models raise under a plan there.
 """
 from __future__ import annotations
 
 import math
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -38,7 +52,7 @@ import torch
 from repro_torch.launch.mesh import flat_axes
 
 __all__ = ["FSDP_THRESHOLD", "ShardingPlan", "map_with_path",
-           "spec_leaves"]
+           "spec_leaves", "zip_map"]
 
 # the reference's: FSDP for every arch above 1e9 parameters
 FSDP_THRESHOLD = 1e9
@@ -57,6 +71,16 @@ def map_with_path(fn, tree, path: tuple = ()):
     if isinstance(tree, list):
         return [map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
     return fn("/".join(str(k) for k in path), tree)
+
+
+def zip_map(fn, tree, specs):
+    """`fn(leaf, spec)` at every leaf of a tree of dicts and lists and
+    the spec at the same place of `specs` (a spec is a tuple: a leaf)."""
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [zip_map(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
 
 
 def spec_leaves(specs) -> list:
@@ -87,6 +111,8 @@ class ShardingPlan:
     fsdp: bool | None = None
     # "dp": pure data parallelism with ZeRO-3 (batch over every axis)
     strategy_override: str | None = None
+    _model_specs: Any = field(default=None, init=False, repr=False,
+                              compare=False)
 
     def __post_init__(self):
         axes = self.mesh.axis_names
@@ -116,9 +142,70 @@ class ShardingPlan:
         return n % self._size(axes) == 0
 
     # -- activation constraints ----------------------------------------
-    def act(self, x, kind: str):
-        """The activation as given: activations stay replicated on every
-        rank in this slice (the reference's decode layout)."""
+    def act(self, x, kind: str, have=None, partial=None):
+        """This rank's block of activation `x` laid out by
+        `act_spec(kind)`, fitted to x's global shape (an axis that does
+        not divide its dimension is dropped, as the reference's `act`
+        does).  x is this rank's block under `have` (None: the whole
+        tensor), and with `partial` (axes) a pending sum over those
+        axes, which this sums.  A kind without a spec keeps `have`."""
+        if x is None:
+            return x
+        have = self._pad(have, x.dim())
+        shape = self.global_shape(x.shape, have)
+        want = have if self.act_spec(kind, x.dim()) is None \
+            else self.spec(kind, shape)
+        return self.relayout(x, have, want, partial)
+
+    def spec(self, kind: str, shape) -> tuple:
+        """`act_spec(kind)` fitted to a global `shape` (replicated for a
+        kind without one): the spec `act` lays such a tensor out by."""
+        spec = self.act_spec(kind, len(shape))
+        if spec is None:
+            return (None,) * len(shape)
+        return self._fit_cache(spec, tuple(shape))
+
+    @staticmethod
+    def _pad(spec, ndim: int) -> tuple:
+        spec = tuple(spec or ())
+        return (spec + (None,) * ndim)[:ndim]
+
+    def global_shape(self, shape, spec) -> tuple:
+        """The global shape of which a block of `shape` is one under
+        `spec` (a fitted spec)."""
+        return tuple(d * self._size(e)
+                     for d, e in zip(shape, self._pad(spec, len(shape))))
+
+    def relayout(self, x: torch.Tensor, have, want, partial=None
+                 ) -> torch.Tensor:
+        """x, this rank's block under spec `have`, as its block under
+        `want` (both fitted to the global shape).  A pending sum over
+        `partial` is reduce-scattered into the dimension `want` splits
+        over exactly those axes and `have` does not, or else
+        all-reduced; then every dimension split differently is
+        all-gathered and every dimension `want` splits is sliced (a
+        view)."""
+        nd = x.dim()
+        have = list(self._pad(have, nd))
+        want = self._pad(want, nd)
+        same = lambda a, b: flat_axes(a) == flat_axes(b)
+        if partial is not None and self._size(partial) > 1:
+            dim = next((d for d in range(nd) if have[d] is None
+                        and want[d] is not None and same(want[d], partial)),
+                       None)
+            if dim is None:
+                x = self.mesh.all_reduce(x, partial)
+            else:
+                x = self.mesh.reduce_scatter(x, partial, dim)
+                have[dim] = want[dim]
+        for d in range(nd):
+            if have[d] is not None and not same(have[d], want[d]):
+                if self._size(have[d]) > 1:
+                    x = self.mesh.all_gather(x, have[d], dim=d)
+                have[d] = None
+        for d in range(nd):
+            if want[d] is not None and have[d] is None:
+                x = x[(slice(None),) * d + (self.block(x.shape[d], want[d]),)]
         return x
 
     def act_spec(self, kind: str, ndim: int = 3):
@@ -241,23 +328,25 @@ class ShardingPlan:
         """Full attn caches: (n, B, S, K, dh) -> (None, dp, model, ...);
         everything else: batch over data, channel/head dims over model
         where divisible."""
+        return map_with_path(lambda name, leaf: self.cache_spec(
+            name, tuple(leaf.shape)), cache_shapes)
+
+    def cache_spec(self, name: str, shape) -> tuple:
+        """The spec of the cache leaf at `name` (its path, as
+        `map_with_path` names it) of global `shape`."""
         dp, m = self.dp, self.model_axis
-
-        def spec_for(name, leaf):
-            shape = tuple(leaf.shape)
-            if re.search(r"/(k|v)$", name):
-                if shape[2] > max(self.cfg.window, 1):  # full cache
-                    return self._fit_cache((None, dp, m, None, None), shape)
-                return self._fit_cache((None, dp, None, None, None), shape)
-            if re.search(r"/s$", name):      # rwkv state (n,B,H,N,N)
+        shape = tuple(shape)
+        if re.search(r"/(k|v)$", name):
+            if shape[2] > max(self.cfg.window, 1):  # full cache
                 return self._fit_cache((None, dp, m, None, None), shape)
-            if re.search(r"/h$", name):      # rg-lru (n,B,W)
-                return self._fit_cache((None, dp, m), shape)
-            if re.search(r"/conv$", name):   # (n,B,cw-1,W)
-                return self._fit_cache((None, dp, None, m), shape)
-            return self._fit_cache((None, dp), shape)
-
-        return map_with_path(spec_for, cache_shapes)
+            return self._fit_cache((None, dp, None, None, None), shape)
+        if re.search(r"/s$", name):      # rwkv state (n,B,H,N,N)
+            return self._fit_cache((None, dp, m, None, None), shape)
+        if re.search(r"/h$", name):      # rg-lru (n,B,W)
+            return self._fit_cache((None, dp, m), shape)
+        if re.search(r"/conv$", name):   # (n,B,cw-1,W)
+            return self._fit_cache((None, dp, None, m), shape)
+        return self._fit_cache((None, dp), shape)
 
     def _fit_cache(self, spec: tuple, shape) -> tuple:
         entries = list(spec)
@@ -281,29 +370,75 @@ class ShardingPlan:
 
     def local_shape(self, shape, spec) -> tuple:
         """The shape of this rank's block of a leaf of `shape`."""
-        return tuple(d if e is None else d // self.mesh.axis_size(e)
-                     for d, e in zip(shape, spec))
+        return tuple(d // self._size(e) for d, e in zip(shape, spec))
 
     def local_shard(self, leaf: torch.Tensor, spec) -> torch.Tensor:
         """This rank's block of `leaf` under `spec` (a view)."""
         return leaf[tuple(self.block(d, e)
                           for d, e in zip(leaf.shape, spec))]
 
-    def _expert_spec(self, name: str, leaf):
-        """The reference's shard_map spec of an expert weight (experts
-        over `model`), or None for any other leaf."""
-        if not re.search(r"moe/w[igo]$", re.sub(r"/\d+", "", name)):
-            return None
-        return ((None,) * (len(leaf.shape) - 3)
-                + (self.model_axis, None, None))
+    # -- weights ---------------------------------------------------------
+    def param_shardings(self, params_shapes):
+        """The spec of every leaf (`param_specs`): where the reference
+        builds a `NamedSharding` of each, a rank's block is its
+        `local_shard` under it."""
+        return self.param_specs(params_shapes)
 
     def shard_params(self, params):
-        """`params` with each expert weight cut to this rank's experts (a
-        view), every other leaf whole."""
-        def one(name, leaf):
-            spec = self._expert_spec(name, leaf)
-            return leaf if spec is None else self.local_shard(leaf, spec)
-        return map_with_path(one, params)
+        """`params` (whole tensors) with every leaf cut to this rank's
+        block by `param_specs` (views: clone them to free the whole
+        tree)."""
+        return zip_map(self.local_shard, params,
+                       self.param_shardings(params))
+
+    def model_specs(self):
+        """`param_specs` of the plan's model (`cfg`'s parameter tree at
+        full shape), computed once."""
+        if self._model_specs is None:
+            # the models import this module
+            from repro_torch.models import transformer
+            self._model_specs = self.param_specs(transformer.init_params(
+                self.cfg, torch.Generator(), "meta"))
+        return self._model_specs
+
+    def _is_data(self, entry) -> bool:
+        return any(a in self.data_axes for a in flat_axes(entry))
+
+    def gather_data(self, leaf: torch.Tensor, spec) -> torch.Tensor:
+        """A weight's block under `spec` with every dimension split over
+        data axes (FSDP) all-gathered: the block the rank computes with,
+        laid out by `compute_spec(spec)`."""
+        for d, e in enumerate(spec):
+            if self._is_data(e) and self._size(e) > 1:
+                leaf = self.mesh.all_gather(leaf, e, dim=d)
+        return leaf
+
+    def compute_spec(self, spec) -> tuple:
+        """`spec` without its data axes: the layout of `gather_data`'s
+        result."""
+        return tuple(None if self._is_data(e) else e for e in spec)
+
+    # -- inputs ----------------------------------------------------------
+    def input_shardings(self, specs: dict) -> dict:
+        """The spec of every input of a batch: rows over the data axes
+        (over every axis under the "dp" strategy) where they divide.
+        `specs` maps a name to anything with `.shape`, or to a `(shape,
+        dtype)` pair as `cfg.input_specs` gives."""
+        dp = self.dp
+        if self.strategy == "dp":
+            dp = tuple(self.data_axes) + (self.model_axis,)
+        out = {}
+        for k, v in specs.items():
+            shape = tuple(v.shape if hasattr(v, "shape") else v[0])
+            out[k] = self._fit_cache((dp,) + (None,) * (len(shape) - 1),
+                                     shape)
+        return out
+
+    def shard_inputs(self, batch: dict) -> dict:
+        """This rank's block of every input of `batch` (whole tensors) by
+        `input_shardings` (views)."""
+        specs = self.input_shardings(batch)
+        return {k: self.local_shard(v, specs[k]) for k, v in batch.items()}
 
     def _kv_spec(self, name: str, shape):
         """The spec of a full-attention K/V leaf of global `shape` (batch

@@ -3,9 +3,10 @@ PyTorch versions: the window kernel bit for bit on both its routes
 ("bitset" up to 32 tags, "generic" above; each launch's route counted, the
 bitset route's trips and passes equal to its plain model's), plus the sweep
 and resume paths that launch it; the flash and decode attention kernels within the
-tolerances of test_kernels.py (2e-5 in f32, 2e-2 in bf16), plus the model
-path that launches them, and both flash routes' exact zeros on rows
-that see no key; the grouped-FFN kernel (`moe_gmm`, `moe_gmm_skip`)
+tolerances of test_kernels.py (2e-5 in f32, 2e-2 in bf16), flash also
+on a block of the queries at q_offset 0 and T/2 (kv_len and kv_start
+still refused), plus the model path that launches them, and both flash
+routes' exact zeros on rows that see no key; the grouped-FFN kernel (`moe_gmm`, `moe_gmm_skip`)
 within test_kernels.py's 2e-5 / 3e-2 on both routes (the tensor-core
 route at every capacity and at arctic's widths, the route chosen by
 dtype, shape and alignment), empty experts exact zeros whose weights are
@@ -336,10 +337,36 @@ def test_flash_kernel_reads_strided_views(dev):
                   fa.flash_attention_plain(q, k, v), torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("block", [0, 1])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_kernel_matches_plain_at_a_q_offset(dev, dtype, dh, block,
+                                                  window):
+    """Block 0 or 1 of two of the queries (q_offset 0 or T/2) against the
+    whole K/V, the sequence-parallel prefill's call, equals the plain
+    version at that offset."""
+    t = 600
+    gen = torch.Generator(device=dev).manual_seed(dh + block + window)
+    q = _randn(gen, (2, t // 2, 8, dh), dtype, dev)
+    k = _randn(gen, (2, t, 2, dh), dtype, dev)
+    v = _randn(gen, (2, t, 2, dh), dtype, dev)
+    kw = dict(window=window, q_offset=block * t // 2)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before + 1
+    _assert_close(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((1, 8, 4, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="window instead"):
-        fa.flash_attention(q, q, q, q_offset=8)
+    lens = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="kv_len/kv_start"):
+        fa.flash_attention(q, q, q, kv_len=lens)
+    with pytest.raises(NotImplementedError, match="kv_len/kv_start"):
+        fa.flash_attention(q, q, q, kv_start=lens)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, q, q, q_offset=-1)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
     with pytest.raises(ValueError, match="bf16 or f32"):

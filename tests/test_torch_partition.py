@@ -4,7 +4,8 @@ arch, mode and production mesh, `param_specs`, `cache_specs` and
 `act_spec` equal the reference's spec for spec (a port spec is the plain
 tuple of a `PartitionSpec`'s entries), on each package's own parameter
 and cache trees at full size (the port's on the meta device, JAX's by
-`eval_shape`), and every spec divides its dimension."""
+`eval_shape`), and every spec divides its dimension; `act` lays a
+whole activation out as its block under the reference's fitted spec."""
 import functools
 
 import jax
@@ -17,6 +18,7 @@ from repro.configs import base as jcb
 from repro.models import transformer as jt
 from repro.sharding.partition import ShardingPlan as JPlan
 from repro_torch.configs import base as tcb
+from repro_torch.launch.mesh import flat_axes
 from repro_torch.models import transformer as tt
 from repro_torch.sharding.partition import ShardingPlan as TPlan
 from repro_torch.sharding.partition import spec_leaves
@@ -26,12 +28,19 @@ tcb.load_all()
 
 
 class FakeMesh:
-    """Shape-only stand-in (plans never touch devices for their specs)."""
+    """Shape-only stand-in (plans never touch devices for their specs),
+    seen from rank 0 (the first block along every axis)."""
 
     def __init__(self, shape_map):
         self.shape = dict(shape_map)
         self.axis_names = tuple(shape_map)
         self.devices = np.empty((0,))
+
+    def axis_size(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in flat_axes(axes)]))
+
+    def axis_index(self, axes) -> int:
+        return 0
 
 
 MESHES = [FakeMesh({"data": 16, "model": 16}),
@@ -131,9 +140,13 @@ def test_cache_specs_equal_the_reference(arch, mesh):
 def test_act_specs_equal_the_reference(arch, mesh, mode):
     tplan = TPlan(mesh, tcb.get_config(arch), mode=mode)
     jplan = JPlan(mesh, jcb.get_config(arch), mode=mode)
-    x = torch.zeros(3)
     for kind in KINDS:
         want = jplan.act_spec(kind)
         assert tplan.act_spec(kind) == (None if want is None
                                         else tuple(want)), kind
-        assert tplan.act(x, kind) is x       # activations stay replicated
+        # a whole activation relaid to the spec is this rank's block
+        x = torch.zeros((64,) * (4 if kind.endswith("heads") else 3))
+        spec = (None,) * x.dim() if want is None else jplan._fit_cache(
+            want, x.shape)
+        assert tplan.act(x, kind).shape == tplan.local_shape(
+            x.shape, tuple(spec)), kind

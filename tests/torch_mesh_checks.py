@@ -138,10 +138,35 @@ def fails(rank_to_fail: int) -> int:
     return rank
 
 
+def whole_logits(plan, logits, batch: int, vocab: int):
+    """The (batch, 1, vocab) logits put together from this rank's block
+    (as given without a plan)."""
+    if plan is None:
+        return logits
+    return plan.relayout(logits, plan.spec("logits", (batch, 1, vocab)), ())
+
+
+def whole_prefill_cache(plan, cache, batch: int, length: int):
+    """A prefill cache of `batch` rows and `length` positions put together
+    from this rank's blocks in the decode layout (as given without a
+    plan)."""
+    if plan is None:
+        return cache
+
+    def one(name, leaf):
+        spec = plan.cache_spec(name, (leaf.shape[0], batch, length,
+                                      *leaf.shape[3:]))
+        return plan.relayout(leaf, spec, ())
+
+    from repro_torch.sharding.partition import map_with_path
+    return map_with_path(one, cache)
+
+
 def model_run(arch, plan=None, decode_plan=None):
     """Prefill of the first T0 tokens and STEPS teacher-forced decode
     steps of `arch`'s smoke config on the CPU: (logits of each call, the
-    expert loads of each call).  Under plans, this rank's blocks."""
+    expert loads of each call).  Under plans each rank holds its blocks,
+    and the logits are put back together."""
     from repro_torch.configs import base as cb
     from repro_torch.models import convert
     from repro_torch.models import transformer as tt
@@ -154,7 +179,9 @@ def model_run(arch, plan=None, decode_plan=None):
     tokens = model_tokens(cfg)
     logits, pre, aux = tt.prefill(
         cfg, params, {"tokens": tokens[:, :T0_MODEL]}, shd=plan)
-    out_l, out_a = [logits], [_loads(aux)]
+    out_l = [whole_logits(plan, logits, B_MODEL, cfg.vocab)]
+    out_a = [_loads(aux)]
+    pre = whole_prefill_cache(plan, pre, B_MODEL, T0_MODEL)
     full = tt.init_cache(cfg, B_MODEL, LEN_MODEL, "cpu")
     for seg, pseg in zip(full, pre):
         for blk, pblk in zip(seg, pseg):
@@ -167,7 +194,8 @@ def model_run(arch, plan=None, decode_plan=None):
                  "positions": np.full((B_MODEL,), i, np.int32)}
         logits, cache, aux = tt.decode_step(cfg, params, batch, cache,
                                             shd=decode_plan)
-        out_l.append(logits)
+        out_l.append(whole_logits(decode_plan, logits, B_MODEL,
+                                  cfg.vocab))
         out_a.append(_loads(aux))
     return out_l, out_a
 
