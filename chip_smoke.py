@@ -19,8 +19,8 @@ The simulator slice: it holds both entry points of the window kernel
 versions bit for bit, on seeded small grids and cells on both kernel
 routes ("bitset" at 7, 29 and 32 tags, "generic" at 33; windows around a
 warp and a pass; the plain results computed meanwhile by
-`PLAIN_WORKERS` host processes, the comparison made after the sched
-slice), and drives the simulator's main path at the paper's full size
+`PLAIN_WORKERS` host processes, the comparison made after the workloads
+slice, where they are all in), and drives the simulator's main path at the paper's full size
 through the entry points a user calls: the fig7 grid and the P=4 fleet sweep through
 `simulator.sweep_fleet`, a serving session of resumed `simulate_many`
 epochs, and the fig6/fig4/fig5/bitstream benchmarks; every window launch
@@ -170,7 +170,8 @@ one record with the card's provenance, and `perf_gate` over it (the
 record against itself passes, a copy with one entry 2x slower fails).
 
 The mesh slice (`repro_torch.launch.mesh`, `repro_torch.sharding` and
-the sharded paths), each phase one job of the card's ranks
+the sharded paths), `mesh_serve` one job of the card's ranks and the
+other three one job together (`mesh_tail_rank`)
 (`mesh.card_world()`: 2 ranks sharing one card over gloo, collectives
 staged through host copies; NCCL with one rank a card, up to 4, on a
 machine of several), its kernel launches counted in the ranks from 0:
@@ -184,16 +185,23 @@ layer's expert load equal, every rank's tokens equal, the sharded decode
 launching no decode kernel (the reference's einsum body), the share of
 decode tokens equal to one rank's printed; `mesh_gspmd_serve` serves
 granite-3-2b at full width and depth on (data 1, model R) (head-TP and
-Megatron-SP) and on (data R, model 1) (FSDP, batch over data) and
+Megatron-SP) and on (data R, model 1) (FSDP, batch over data),
 qwen1.5-4b at full width cut to 8 layers on (data 1, model R)
 (sequence-parallel attention: flash on each rank's block of the queries
-at its q_offset) through `model_batcher` under the plans (`serve.step`),
+at its q_offset), and recurrentgemma-9b (bf16) and rwkv6-7b (f32) at
+full width and depth on (data 1, model R) (`rglru_scan` on each rank's
+W/tp channels, `rwkv6_scan` on its H/tp heads, the windowed flash on its
+heads, the window decode on the decode layout's heads, every state by
+`cache_specs`) through `model_batcher` under the plans (`serve.step`),
 every rank holding copies of its blocks of the weights alone (its
 resident bytes within 1 % of the specs' count), request 0's prefill
-logits within DEEP_BF16_REL of one rank's, every request finished,
-tokens equal across ranks, flash's local heads H/tp (granite) and a
-nonzero q_offset past the first model rank (qwen), the collectives of a
-prefill and of a decode step counted by kind; `mesh_fleet` runs fig7's grid
+logits within DEEP_BF16_REL of one rank's (rwkv6: each block's output
+from one rank's input within GSPMD_BLOCK_REL, its end-to-end gap
+printed), every request finished, tokens equal across ranks, each
+kernel of the arch launched on its blocks and no other, the
+collectives of a prefill and of a decode step counted by kind, the
+seconds the recurrent pair adds beside the room made for them;
+`mesh_fleet` runs fig7's grid
 and the P=4 fleet sweep with the fleet axis sharded over the ranks, the
 rows' sha1s the one-rank phases'; `mesh_compress` holds
 `cross_pod_mean_tree` over the ranks as pods, on one granite-3-2b
@@ -899,14 +907,15 @@ def _tensors(x, dev):
 
 def plain_on_host(name: str, args: tuple, kw: dict) -> tuple:
     """A window wrapper's plain version on the host, in a worker process:
-    numpy inputs in; the fields as numpy and the seconds it took out."""
+    numpy inputs in; the fields as numpy, the seconds it took and the
+    wall-clock time it finished out."""
     t0 = time.perf_counter()
     if SRC not in sys.path:
         sys.path.insert(0, SRC)
     torch.set_num_threads(1)
     from repro_torch.kernels import window_distance as wd
     out = getattr(wd, f"{name}_plain")(*_tensors(args, "cpu"), **kw)
-    return [o.numpy() for o in out], time.perf_counter() - t0
+    return [o.numpy() for o in out], time.perf_counter() - t0, time.time()
 
 
 def start_plain(pool, cases: list) -> list:
@@ -916,24 +925,30 @@ def start_plain(pool, cases: list) -> list:
             for name, args, kw, _ in cases]
 
 
-def phase_kernel_vs_plain(dev, errs: dict, cases: list, plain: list) -> None:
+def phase_kernel_vs_plain(dev, errs: dict, cases: list, plain: list,
+                          old_slot: float | None = None) -> float:
     """The kernel on `kernel_vs_plain_cases`' inputs, on the card, against
     its plain version on the same inputs (computed on the host by
     `start_plain`: on the card its small launches took 134-197 s, PERF.md
     §7), every field equal bit for bit, on the route each alphabet takes
-    (bitset up to 32 tags, generic at 33)."""
+    (bitset up to 32 tags, generic at 33).  It runs after the workloads
+    slice: with `old_slot` (the wall-clock time the sched slice ended,
+    where it ran before) it returns and prints how long the card would
+    have waited there for the last plain result."""
     from repro_torch.kernels import window_distance as wd
     before = {fn.__name__: dict(fn.routes)
               for fn in (wd.window_grid, wd.window_cell)}
     t0 = time.perf_counter()
     host_s = waited_s = 0.0
+    last = 0.0
     for (name, args, kw, what), fut in zip(cases, plain):
         got = [g.cpu() for g in getattr(wd, name)(*_tensors(args, dev),
                                                     **kw)]
         t1 = time.perf_counter()
-        fields, secs = fut.result()
+        fields, secs, finished = fut.result()
         waited_s += time.perf_counter() - t1
         host_s += secs
+        last = max(last, finished)
         want = [torch.from_numpy(w) for w in fields]
         errs[name] = max(errs[name], max_err(got, want))
         assert_same(got, want, what)
@@ -947,11 +962,14 @@ def phase_kernel_vs_plain(dev, errs: dict, cases: list, plain: list) -> None:
                 for r in wd.ROUTES}
         check(taken == want, f"kernel_vs_plain {name} routes {taken}, "
                              f"expected {want}")
+    old_wait = max(0.0, last - old_slot) if old_slot is not None else None
     emit("kernel_vs_plain", cases=len(cases), windows=list(WINDOWS),
          num_tags=list(CHECK_TAGS), routes=routes, match=True,
          seconds=round(time.perf_counter() - t0, 3),
          plain_host_s=round(host_s, 3), plain_workers=PLAIN_WORKERS,
-         waited_for_plain_s=round(waited_s, 3))
+         waited_for_plain_s=round(waited_s, 3),
+         wait_at_old_slot_s=None if old_wait is None else round(old_wait, 3))
+    return old_wait or 0.0
 
 
 # The host functions of the simulator slice whose wall time the fig7 and
@@ -1877,13 +1895,17 @@ def phase_model_serve_study(dev, launches: dict) -> None:
          rows_match_cpu=True, **launches["model_serve_study"])
 
 
-def phase_perf_sweep(dev, launches: dict) -> None:
+def phase_perf_sweep(dev, launches: dict) -> float:
     """`perf_sweep`'s five engine sections on the card, parity asserted in
     each before timing (the reference-machine arms run once, as their
     parity run; the fast arms best of `REPS`), then its `window_kernel`
     section: the kernel against the plain window pass.  Sections 1-5
     count as this path's window launches; the `window_kernel` section's
-    compare the kernel with its plain version and are printed apart."""
+    compare the kernel with its plain version and are printed apart.
+    Returns the seconds the cold-bitstream reference arm no longer spends
+    (its capacities were one step loop each; now lanes of one, the loop
+    bound by its steps' launches: the capacities less one, times this
+    run's loop)."""
     from repro_torch.bench import perf_sweep
     sections, seconds = {}, {}
     with window_launches("perf_sweep", launches):
@@ -1910,6 +1932,8 @@ def phase_perf_sweep(dev, launches: dict) -> None:
     emit("window_kernel", seconds=round(secs, 3), parity=True, **r,
          launches=compare["window_kernel"]["launches"],
          counted_in_kernels_line=False)
+    return (len(perf_sweep.BS_CAPACITIES) - 1) * \
+        sections["cold_bitstream"]["scan_s"]
 
 
 # ---------------------------------------------------------------------------
@@ -4234,7 +4258,8 @@ def phase_substrate(dev, card: str, train: dict, sweep) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_TIMEOUT_S = 420.0     # a phase's job, its ranks' start-up included
-MESH_KERNELS = ("window_grid", "flash_attention", "moe_gmm", "moe_gmm_skip")
+MESH_KERNELS = ("window_grid", "flash_attention", "moe_gmm", "moe_gmm_skip",
+                "decode_attention", "rglru_scan", "rwkv6_scan")
 # mesh_serve: arctic-480b-2l (full width, all 128 experts) through
 # `model_batcher` on a (data 1, model R) mesh, as `moe_serve`'s requests
 MESH_SERVE = dict(num_requests=8, batch=8, max_len=2048, new_tokens=32,
@@ -4297,11 +4322,13 @@ def mesh_fleet_rank() -> dict:
         launches=wd.window_grid.launches, routes=dict(wd.window_grid.routes))
 
 
-def phase_mesh_fleet(card: str) -> dict:
+def phase_mesh_fleet(card: str, job: tuple) -> dict:
     """fig7's grid (300 cells of 160,000 steps) and the P=4 fleet sweep
     with the fleet axis sharded over the card's ranks: the rows' sha1s
-    must be the one-rank phases' (the JAX package's)."""
-    ranks, world, backend, secs = _spawn(mesh_fleet_rank)
+    must be the one-rank phases' (the JAX package's).  `job`: (the
+    ranks' `mesh_fleet_rank` results, world, backend, seconds) from
+    `phase_mesh_gspmd_serve`'s job."""
+    ranks, world, backend, secs = job
     for i, r in enumerate(ranks):
         check(r["ranks"] == world, f"mesh_fleet rank {i} sharded over "
                                    f"{r['ranks']} ranks, not {world}")
@@ -4448,20 +4475,49 @@ def phase_mesh_serve(dev, card: str) -> dict:
     return launches
 
 
-# mesh_gspmd_serve: the dense weights and activations laid out by the
-# plan (tensor, sequence and FSDP parallelism), served through
-# `model_batcher` -> `serve.step`: (name, arch, mesh with "R" the card
-# world's ranks, requests, new tokens).  Prompt lengths divide by 4, so
-# qwen's sequence-sharded prefill splits every prompt at 2 or 4 ranks.
-# FSDP over gloo stages ~2.4 GB of layer weights through the host a
-# forward (~7.5 s on one card), so its run serves 1 request of 2 tokens
+# mesh_gspmd_serve: the weights, activations and caches laid out by the
+# plan (tensor, sequence and FSDP parallelism; the recurrent states'
+# channels and heads over model), served through `model_batcher` ->
+# `serve.step`: (name, arch, mesh with "R" the card world's ranks,
+# requests, new tokens).  Prompt lengths divide by 4, so qwen's
+# sequence-sharded prefill splits every prompt at 2 or 4 ranks.  FSDP
+# over gloo stages ~2.4 GB of layer weights through the host a forward
+# (~7.5 s on one card), so its run serves 1 request of 2 tokens.  The
+# recurrent pair runs at full width and depth, each in the dtype its
+# one-rank consistency check is gated in (DEEP_GATED_DTYPE: rwkv6's bf16
+# WKV recurrence is chaotic at full depth, 0.70 kernel vs plain); every
+# prompt lies within recurrentgemma's 2,048-token window.
 GSPMD_RUNS = (
     ("granite_tp_sp", "granite-3-2b", {"data": 1, "model": "R"}, 4, 4),
     ("granite_fsdp", "granite-3-2b", {"data": "R", "model": 1}, 1, 2),
-    ("qwen_seq", "qwen1.5-4b-8l", {"data": 1, "model": "R"}, 4, 8))
+    ("qwen_seq", "qwen1.5-4b-8l", {"data": 1, "model": "R"}, 4, 8),
+    ("recurrentgemma_tp", RG, {"data": 1, "model": "R"}, 4, 4),
+    ("rwkv6_tp", RWKV, {"data": 1, "model": "R"}, 4, 4))
 GSPMD_SERVE = dict(batch=4, max_len=1024, prompt_lens=(512, 300, 256, 100))
 QWEN_8L = "qwen1.5-4b-8l"
 GSPMD_RESIDENT_REL = 0.01  # resident weight bytes against the specs' count
+# archs whose whole weights the parent does not hold through the spawn:
+# each rank draws them (seed 0, as the parent's one-rank serve did) and
+# keeps its blocks as it draws (`init_params(keep=...)`), one layer whole
+# at a time
+GSPMD_RANK_DRAWN = (RG, RWKV)
+# the kernels each run's ranks launch on the main path, and the ones they
+# must not: the attention archs' sharded decode is the reference's einsum
+# body (no decode kernel), recurrentgemma's window decode runs the decode
+# kernel on every head of the rank's rows, rwkv6 runs no attention
+GSPMD_KERNELS = ("flash_attention", "decode_attention", "rglru_scan",
+                 "rwkv6_scan")
+GSPMD_LAUNCHED = {RG: {"flash_attention", "decode_attention", "rglru_scan"},
+                  RWKV: {"rwkv6_scan"}}
+# rwkv6-7b at full depth, on random weights, amplifies f32 rounding
+# ~1e4-fold over its 32 layers: on request 0's prompt one rank's kernels
+# and its plain scan give prefill logits ~0.11 apart, so an end-to-end
+# gap to one rank's says little.  Its run is held block by block, each
+# block's output on the ranks from one rank's input within
+# GSPMD_BLOCK_REL (f32: the sums' order alone, ~5e-6 on the card), and
+# its end-to-end gap and one rank's kernel-vs-plain gap are printed
+GSPMD_BLOCKWISE = (RWKV,)
+GSPMD_BLOCK_REL = 1e-3
 
 
 def register_qwen_8l():
@@ -4571,28 +4627,74 @@ def _resident_bytes(tree) -> int:
                 for t in leaves(tree)}.values())
 
 
-def gspmd_serve_rank(shared: list) -> dict:
-    """One rank of `mesh_gspmd_serve`: for each of GSPMD_RUNS its blocks
-    of the weights in `shared` (copied to its card from the views it gets
-    by CUDA IPC, so it holds its blocks alone), then `_gspmd_serve_once`
-    under the plan, its collectives counted and every flash launch's
-    local heads and q_offset recorded.  The weights are popped from `shared` and dropped
-    before it returns."""
-    weights = shared.pop()
+def _gspmd_blocks(cfg, full, plan, dev):
+    """A rank's blocks of a run's weights, copied to its card so that it
+    holds them alone: cut from the parent's whole tensors (CUDA IPC
+    views), or, where the parent holds none (`full` None), drawn here
+    (seed 0) and cut as they are drawn."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding.partition import spec_leaves
+    from repro_torch.tree_util import tree_map
+    if full is not None:
+        return tree_map(lambda t: t.to(dev, copy=True),
+                        plan.shard_params(full))
+    specs = dict(spec_leaves(plan.model_specs()))
+    return transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev,
+        keep=lambda name, leaf: plan.local_shard(leaf, specs[name]).clone())
+
+
+def _gspmd_spies(seen: dict):
+    """Wrap the launching entries of GSPMD_KERNELS: each launch adds its
+    local heads (flash, with q_offset and window; decode) or channels
+    (rglru_scan) or heads (rwkv6_scan) to `seen[name]`.  Returns a
+    function that puts them back."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    real = {"flash_attention": (fa, "_kernel"), "decode_attention":
+            (da, "_launch"), "rglru_scan": (rg, "_kernel"),
+            "rwkv6_scan": (rw, "_kernel")}
+    real = {k: (m, a, getattr(m, a)) for k, (m, a) in real.items()}
+    what = {"flash_attention": lambda q, *_, **kw: (
+                int(q.shape[2]), int(kw.get("q_offset", 0)),
+                int(kw.get("window", 0))),
+            "decode_attention": lambda q, *_, **kw: int(q.shape[1]),
+            "rglru_scan": lambda u, *_, **kw: int(u.shape[-1]),
+            "rwkv6_scan": lambda r, *_, **kw: int(r.shape[2])}
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            seen[name].add(what[name](*a, **kw))
+            return fn(*a, **kw)
+        return call
+
+    for name, (m, a, fn) in real.items():
+        setattr(m, a, spy(name, fn))
+    return lambda: [setattr(m, a, fn) for m, a, fn in real.values()]
+
+
+def gspmd_serve_rank(shared: list) -> dict:
+    """One rank of `mesh_gspmd_serve`: for each of GSPMD_RUNS its blocks
+    of the weights (`_gspmd_blocks`), then `_gspmd_serve_once` under the
+    plan, its collectives counted, its launches of GSPMD_KERNELS counted
+    from 0 and each launch's local heads or channels recorded.  The
+    weights are popped from `shared` and dropped before it returns."""
+    weights, inputs = shared.pop()
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.launch import mesh
     from repro_torch.sharding import ShardingPlan
-    from repro_torch.tree_util import tree_map
     dev = _rank_device()
     world = mesh.world()[0]
-    seen, real = set(), fa._kernel
-
-    def spy(q, k, v, **kw):
-        seen.add((int(q.shape[2]), int(kw.get("q_offset", 0))))
-        return real(q, k, v, **kw)
-
-    fa._kernel = spy
+    wrappers = {"flash_attention": fa.flash_attention,
+                "decode_attention": da.decode_attention,
+                "rglru_scan": rg.rglru_scan, "rwkv6_scan": rw.rwkv6_scan}
+    seen = {k: set() for k in GSPMD_KERNELS}
+    restore = _gspmd_spies(seen)
     out = {}
     try:
         for name, arch, axes, n, new_tokens in GSPMD_RUNS:
@@ -4602,94 +4704,247 @@ def gspmd_serve_rank(shared: list) -> dict:
             plan = ShardingPlan(m, cfg, mode="decode")
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            local = tree_map(lambda t: t.to(dev, copy=True),
-                             plan.shard_params(full))
+            local = _gspmd_blocks(cfg, full, plan, dev)
             resident = _resident_bytes(local)
             want = _spec_bytes(plan, cfg)
             counts = _count_collectives(m)
-            seen.clear()
-            fa.flash_attention.launches = 0
-            da.decode_attention.launches = 0
+            for k, fn in wrappers.items():
+                seen[k].clear()
+                fn.launches = 0
             res = _gspmd_serve_once(cfg, local, dev, n, new_tokens, plan,
                                     counts)
+            # the main path's launches, read before the block check's
+            res.update(launches={k: fn.launches for k, fn in wrappers.items()},
+                       seen={k: sorted(v) for k, v in seen.items()})
+            if arch in inputs:
+                res["block_rel"] = _block_gaps(cfg, local, plan,
+                                               inputs[arch])
             out[name] = _rank_report(
                 t0, **res, resident_bytes=resident, spec_bytes=want,
-                launches={"flash_attention": fa.flash_attention.launches,
-                          "decode_attention": da.decode_attention.launches},
-                flash_seen=sorted(seen), coords=dict(m.coords),
-                mesh=dict(m.shape))
+                coords=dict(m.coords), mesh=dict(m.shape))
             del local
             gc.collect()
             torch.cuda.empty_cache()
     finally:
-        fa._kernel = real
-    del weights, full
+        restore()
+    del weights, inputs, full
     gc.collect()
     return out
 
 
-def phase_mesh_gspmd_serve(dev, card: str) -> dict:
+def _prefill_logits(cfg, params, prompt, use_kernel) -> torch.Tensor:
+    from repro_torch.models import transformer
+    with torch.no_grad():
+        logits, _, _ = transformer.prefill(cfg, params,
+                                           {"tokens": prompt[None]},
+                                           use_kernel=use_kernel)
+    return logits.float()
+
+
+def _blocks(cfg):
+    """(segment, layer, block index, block type) of every block, in order."""
+    from repro_torch.models import transformer
+    return [(si, i, j, t) for si, (types, n) in
+            enumerate(transformer.segments(cfg))
+            for i in range(n) for j, t in enumerate(types)]
+
+
+def _block_inputs(cfg, params, prompt) -> list:
+    """One rank's residual stream on a prefill of `prompt`: the embedded
+    prompt, then each block's output, [x_0, ..., x_L]."""
+    from repro_torch.models import transformer
+    from repro_torch.tree_util import tree_map
+    ids = torch.as_tensor(prompt, device=params["final_norm"].device)
+    x = params["embed"][ids.long()][None]
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    ctx = transformer.Ctx(cfg=cfg, mode="prefill", positions=pos)
+    xs = [x]
+    with torch.no_grad():
+        for si, i, j, t in _blocks(cfg):
+            p = tree_map(lambda a: a[i], params["segments"][si][j])
+            xs.append(transformer.apply_block(t, p, xs[-1], None, ctx)[0])
+    return xs
+
+
+def _block_gaps(cfg, local, plan, xs: list) -> list:
+    """Each block on this rank's blocks of the weights (`local`, under
+    `plan`'s prefill layout), from its block of one rank's input
+    `xs[k]` (on the parent's card: copied to the rank's), against one
+    rank's output `xs[k + 1]`: the relative L2 of the whole output (its
+    squared sums over the ranks' blocks), a block each."""
+    from repro_torch.launch.mesh import flat_axes
+    from repro_torch.models import transformer
+    from repro_torch.sharding.partition import map_with_path, zip_map
+    from repro_torch.tree_util import tree_map
+    pre = dataclasses.replace(plan, mode="prefill")
+    dev = local["final_norm"].device
+    b, t = xs[0].shape[:2]
+    hid = pre.spec("hidden", (b, t, cfg.d_model))
+    axes = tuple(a for e in hid for a in flat_axes(e))
+    pos = torch.arange(t, device=dev)[None].expand(b, t)
+    ctx = transformer.Ctx(cfg=cfg, mode="prefill",
+                          positions=pre.relayout(pos, (), hid[:1]),
+                          shd=pre, bt=(b, t))
+    rels = []
+    with torch.no_grad():
+        for k, (si, i, j, typ) in enumerate(_blocks(cfg)):
+            specs = map_with_path(lambda _, s: s[1:],
+                                  pre.model_specs()["segments"][si][j])
+            p = zip_map(pre.gather_data,
+                        tree_map(lambda a: a[i], local["segments"][si][j]),
+                        specs)
+            ps = map_with_path(lambda _, s: pre.compute_spec(s), specs)
+            x = pre.relayout(xs[k], (), hid).to(dev)
+            y = transformer.apply_block(typ, p, x, None, ctx, ps)[0]
+            want = pre.relayout(xs[k + 1], (), hid).to(dev).double()
+            sums = torch.stack([(y.double() - want).square().sum(),
+                                want.square().sum()])
+            if axes:
+                sums = pre.mesh.all_reduce(sums, axes)
+            rels.append(float((sums[0] / sums[1]).sqrt()))
+    return rels
+
+
+def _gspmd_want(cfg, tp: int, coords: dict) -> dict:
+    """What each launched kernel of GSPMD_KERNELS must have seen on a rank
+    at model index coords["model"] of `tp`: {name: a check on its set of
+    recorded values, and what the check wants, printed}."""
+    heads = cfg.num_heads
+    want = {}
+    if cfg.attn_sharding == "heads" and heads:
+        want["flash_attention"] = (
+            lambda s: {h for h, _, _ in s} == {heads // tp},
+            f"{heads // tp} local heads")
+    elif heads and coords["model"] > 0:
+        want["flash_attention"] = (
+            lambda s: max(o for _, o, _ in s) > 0, "a q_offset past 0")
+    if cfg.pattern:
+        # the decode layout gives every head to the window decode
+        want["decode_attention"] = (lambda s: s == {heads},
+                                    f"{heads} heads")
+        want["rglru_scan"] = (lambda s: s == {cfg.lru_width // tp},
+                              f"{cfg.lru_width // tp} channels")
+    if cfg.ssm == "rwkv6":
+        h = cfg.d_model // cfg.head_dim
+        want["rwkv6_scan"] = (lambda s: s == {h // tp}, f"{h // tp} heads")
+    return want
+
+
+def mesh_tail_rank(shared: list, rounds: int) -> dict:
+    """One rank of the job the last three mesh phases share (one start of
+    the ranks for the three): `gspmd_serve_rank`, `mesh_fleet_rank` and
+    `mesh_compress_rank` in turn, and the seconds all three took."""
+    t0 = time.perf_counter()
+    out = {"mesh_gspmd_serve": gspmd_serve_rank(shared)}
+    torch.cuda.reset_peak_memory_stats()
+    out["mesh_fleet"] = mesh_fleet_rank()
+    torch.cuda.reset_peak_memory_stats()
+    out["mesh_compress"] = mesh_compress_rank(rounds)
+    out["bodies_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_gspmd_serve(dev, card: str, room: dict
+                           ) -> tuple[dict, dict]:
     """granite-3-2b at full width and depth on (data 1, model R) (head-TP
-    and Megatron-SP) and (data R, model 1) (FSDP, batch over data), and
+    and Megatron-SP) and (data R, model 1) (FSDP, batch over data),
     qwen1.5-4b at full width cut to 8 layers on (data 1, model R)
     (sequence-parallel: flash on each rank's block of the queries at its
-    q_offset), served through `model_batcher` under the port's plans
-    (`serve.step`), each rank holding its blocks of the weights alone;
-    the weights drawn once here (seed 0), with each model's one-rank
-    serve of the same requests.  Each rank: request 0's prefill logits
-    within DEEP_BF16_REL of one rank's, every request finished, tokens
-    equal to rank 0's, flash launched on every rank with H/tp local
-    heads (granite) or at a nonzero q_offset on the model ranks past the
-    first (qwen), no decode kernel (the sequence-sharded decode is the
-    reference's einsum body), resident weight bytes within 1 % of the
-    specs' count; the share of decode tokens equal to one rank's is
-    printed, not gated."""
+    q_offset), and recurrentgemma-9b and rwkv6-7b at full width and depth
+    on (data 1, model R) (`rglru_scan` on each rank's W/tp channels,
+    `rwkv6_scan` on its H/tp heads, windowed flash on its heads), served
+    through `model_batcher` under the port's plans (`serve.step`), each
+    rank holding its blocks of the weights alone; the weights drawn here
+    (seed 0) for each model's one-rank serve of the same requests (the
+    recurrent pair's freed after it, each rank drawing its own copy,
+    `_gspmd_blocks`).  Each rank: request 0's prefill logits within
+    DEEP_BF16_REL of one rank's, every request finished, tokens equal to
+    rank 0's, each kernel of GSPMD_LAUNCHED[arch] (flash for the
+    attention archs) launched on the blocks `_gspmd_want` names and no
+    other kernel of GSPMD_KERNELS, resident weight bytes within 1 % of
+    the specs' count; the share of decode tokens equal to one rank's is
+    printed, not gated, and so are the seconds the recurrent pair adds
+    (its draws and one-rank serves here, its runs on the ranks) and the
+    seconds `room` (name: seconds, measured in this run) and the shared
+    job made.  The ranks run `mesh_fleet`'s and `mesh_compress`'s bodies
+    in the same job (`mesh_tail_rank`): two starts of the ranks fewer,
+    each as long as this job's (its wall less its ranks' bodies).
+    Returns (the launches of GSPMD_KERNELS, {phase: the job's results
+    for `phase_mesh_fleet` and `phase_mesh_compress`})."""
     from repro_torch.configs import base as cb
     from repro_torch.models import transformer
     cb.load_all()
-    weights, one = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    weights, inputs, one, added = {}, {}, {}, {}
     for name, arch, _, n, new_tokens in GSPMD_RUNS:
-        if arch not in weights:
+        t0 = time.perf_counter()
+        cfg, params = weights.get(arch, (None, None))
+        if cfg is None:
             cfg = register_qwen_8l() if arch == QWEN_8L \
-                else cb.get_config(arch)
+                else _recurrent(arch, dtype=DEEP_GATED_DTYPE[arch]) \
+                if arch in GSPMD_RANK_DRAWN else cb.get_config(arch)
             params = transformer.init_params(
                 cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        one[name] = _gspmd_serve_once(cfg, params, dev, n, new_tokens)
+        if arch in GSPMD_BLOCKWISE:
+            prompt = _gspmd_requests(cfg, 1, 1)[0].prompt
+            inputs[arch] = _block_inputs(cfg, params, prompt)
+            one[name]["route_gap"] = _rel(
+                _prefill_logits(cfg, params, prompt, "auto"),
+                _prefill_logits(cfg, params, prompt, "plain"))
+        if arch in GSPMD_RANK_DRAWN:
+            weights[arch] = (cfg, None)
+            params = None
+            torch.cuda.empty_cache()
+            added[name] = time.perf_counter() - t0
+        else:
             weights[arch] = (cfg, params)
-        one[name] = _gspmd_serve_once(*weights[arch], dev, n, new_tokens)
+    params = None
     torch.cuda.empty_cache()
-    ranks, world, backend, secs = _spawn(gspmd_serve_rank, ([weights],))
-    del weights, params
+    tail, world, backend, secs = _spawn(mesh_tail_rank,
+                                        ([(weights, inputs)],
+                                         COMPRESS_ROUNDS))
+    ranks = [r["mesh_gspmd_serve"] for r in tail]
+    start_s = secs - max(r["bodies_s"] for r in tail)
+    room = dict(room, rank_starts=2 * start_s)
+    parent_peak_gb = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    weights = {arch: (cfg, None) for arch, (cfg, _) in weights.items()}
+    inputs = None
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
-    runs, launches = {}, 0
+    runs, launches = {}, dict.fromkeys(GSPMD_KERNELS, 0)
     for name, arch, _, n, new_tokens in GSPMD_RUNS:
-        cfg = cb.get_config(arch)
+        cfg = weights[arch][0]
         rels, shares, rows = [], [], []
+        launched = GSPMD_LAUNCHED.get(arch, {"flash_attention"})
         for i, rank in enumerate(ranks):
             r = rank[name]
             what = f"mesh_gspmd_serve {name} rank {i}"
             rel = _rel(r["logits"], one[name]["logits"])
             rels.append(rel)
-            check(rel <= DEEP_BF16_REL, f"{what}: prefill logits {rel} "
-                                        f"from one rank's > {DEEP_BF16_REL}")
+            if arch in GSPMD_BLOCKWISE:
+                worst = max(r["block_rel"])
+                check(worst <= GSPMD_BLOCK_REL,
+                      f"{what}: a block's output {worst} from one rank's "
+                      f"> {GSPMD_BLOCK_REL}")
+            else:
+                check(rel <= DEEP_BF16_REL, f"{what}: prefill logits {rel} "
+                                            f"from one rank's > "
+                                            f"{DEEP_BF16_REL}")
             check(r["report"]["finished"] == n,
                   f"{what} served {r['report']['finished']} of {n}")
             check(r["tokens"] == ranks[0][name]["tokens"],
                   f"{what}'s tokens differ from rank 0's")
-            check(r["launches"]["flash_attention"] > 0,
-                  f"{what} launched no flash")
-            check(r["launches"]["decode_attention"] == 0,
-                  f"{what}: the sharded decode launched the decode kernel")
-            tp = r["mesh"]["model"]
-            heads = {h for h, _ in r["flash_seen"]}
-            offsets = {o for _, o in r["flash_seen"]}
-            if cfg.attn_sharding == "heads":
-                check(heads == {cfg.num_heads // tp},
-                      f"{what}: flash took heads {heads}, not "
-                      f"{cfg.num_heads // tp}")
-            elif r["coords"]["model"] > 0:
-                check(max(offsets) > 0, f"{what}: flash saw q_offsets "
-                                        f"{offsets}, none past 0")
+            for k in GSPMD_KERNELS:
+                if k in launched:
+                    check(r["launches"][k] > 0, f"{what} launched no {k}")
+                else:
+                    check(r["launches"][k] == 0,
+                          f"{what} launched {k} {r['launches'][k]} times")
+            for k, (ok, wanted) in _gspmd_want(
+                    cfg, r["mesh"]["model"], r["coords"]).items():
+                check(ok(set(r["seen"][k])),
+                      f"{what}: {k} saw {r['seen'][k]}, not {wanted}")
             gap = abs(r["resident_bytes"] / r["spec_bytes"] - 1)
             check(gap <= GSPMD_RESIDENT_REL,
                   f"{what} holds {r['resident_bytes']} weight bytes, the "
@@ -4700,19 +4955,40 @@ def phase_mesh_gspmd_serve(dev, card: str) -> dict:
             shares.append(sum(a == b for a, b in pairs) / max(len(pairs), 1))
             rows.append({k: r[k] for k in (
                 "seconds", "peak_gb", "serve_s", "resident_bytes",
-                "spec_bytes", "collectives", "launches", "flash_seen")})
-            launches += r["launches"]["flash_attention"]
+                "spec_bytes", "collectives", "launches", "seen")
+                if k in r})
+            if "block_rel" in r:
+                rows[-1]["block_rel_max"] = max(r["block_rel"])
+            for k in GSPMD_KERNELS:
+                launches[k] += r["launches"][k]
         runs[name] = dict(
-            arch=arch, layers=cfg.num_layers, mesh=ranks[0][name]["mesh"],
+            arch=arch, layers=cfg.num_layers, dtype=cfg.dtype,
+            mesh=ranks[0][name]["mesh"],
             strategy=cfg.attn_sharding, requests=n, new_tokens=new_tokens,
             prefill_rel_l2=rels, decode_tokens_equal_share=shares,
-            one_rank_serve_s=one[name]["serve_s"], ranks=rows)
+            prefill_gated=arch not in GSPMD_BLOCKWISE,
+            one_rank_serve_s=one[name]["serve_s"], ranks=rows,
+            **({"one_rank_kernel_vs_plain": one[name]["route_gap"],
+                "block_tolerance": GSPMD_BLOCK_REL}
+               if "route_gap" in one[name] else {}))
+        if name in added:   # the parent's part, then the ranks' run
+            added[name] += max(rk[name]["seconds"] for rk in ranks)
     emit("mesh_gspmd_serve", world=world, backend=backend, seconds=secs,
          tolerance=DEEP_BF16_REL, resident_tolerance=GSPMD_RESIDENT_REL,
          batch=GSPMD_SERVE["batch"], max_len=GSPMD_SERVE["max_len"],
          prompt_lens=list(GSPMD_SERVE["prompt_lens"]), runs=runs,
-         nvidia_smi=card)
-    return {"flash_attention": launches}
+         parent_peak_gb=parent_peak_gb,
+         rank_peak_gb=[max(rk[name]["peak_gb"] for name, *_ in GSPMD_RUNS)
+                       for rk in ranks],
+         recurrent_added_s=round(sum(added.values()), 3),
+         recurrent_added_by_run_s={k: round(v, 3) for k, v in added.items()},
+         room_made_s=round(sum(room.values()), 3),
+         room_made_by_s={k: round(v, 3) for k, v in room.items()},
+         job_start_s=round(start_s, 3), nvidia_smi=card)
+    jobs = {k: ([r[k] for r in tail], world, backend,
+                round(max(r[k]["seconds"] for r in tail), 3))
+            for k in ("mesh_fleet", "mesh_compress")}
+    return launches, jobs
 
 
 def mesh_compress_rank(rounds: int) -> dict:
@@ -4750,12 +5026,12 @@ def mesh_compress_rank(rounds: int) -> dict:
                         elements=sum(v[0].numel() for v in full.values()))
 
 
-def phase_mesh_compress(card: str) -> None:
+def phase_mesh_compress(card: str, job: tuple) -> None:
     """`cross_pod_mean_tree` with the card's ranks as pods on one
     granite-3-2b layer's gradient shapes: bit-equal to the
-    leading-dimension form, means and residuals, every round."""
-    ranks, world, backend, secs = _spawn(mesh_compress_rank,
-                                         (COMPRESS_ROUNDS,))
+    leading-dimension form, means and residuals, every round.  `job` as
+    `phase_mesh_fleet`'s."""
+    ranks, world, backend, secs = job
     for i, r in enumerate(ranks):
         check(r["equal"], f"mesh_compress rank {i}: the mean over ranks "
                           f"differs from the leading-dimension form")
@@ -4845,16 +5121,9 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
     phase_sched_fleet_scale(dev, sched, late_errs)
     phase_sched_engine(dev, sched)
     emit("sched_path", phases=sched)
-    # the seeded small grids and cells, their plain results from the host
-    phase_kernel_vs_plain(dev, late_errs, cases, plain)
-    # the dry run's 32 cells, counted on the host once the plain results
-    # are in, while the card runs the phases up to the substrate slice
-    sweep = pool.submit(dryrun_sweep_on_host)
+    sched_end = time.time()
     for row in kernels:
         name = row["name"]
-        check(late_errs[name] == 0, f"{name} differs from its plain "
-                                    f"version by {late_errs[name]}")
-        row["max_abs_err"] = max(row["max_abs_err"], late_errs[name])
         n = sum(ph["launches"][name] for ph in sched.values())
         row["launches_by_slice"] = {"simulator": row["launches"], "sched": n}
         row["launches"] += n
@@ -4869,7 +5138,7 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
     phase_workloads_mix(mix)
     new = {}
     phase_model_serve_study(dev, new)
-    phase_perf_sweep(dev, new)
+    bitstream_loops = phase_perf_sweep(dev, new)
     emit("workloads_path", phases=new,
          seconds=round(time.perf_counter() - t_new, 3))
     for row in kernels:
@@ -4881,6 +5150,21 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
             row["launches"] += n
             row["routes"] = {r: row["routes"][r] + new[ph]["routes"][name][r]
                              for r in wd.ROUTES}
+    # the seeded small grids and cells, their plain results from the host
+    # (by now all in: at the end of the sched slice the card waited up to
+    # ~90 s for them); the room this and perf_sweep's one bitstream loop
+    # make is printed by mesh_gspmd_serve
+    room = {"plain_wait": phase_kernel_vs_plain(dev, late_errs, cases, plain,
+                                                sched_end),
+            "bitstream_loops": bitstream_loops}
+    # the dry run's 32 cells, counted on the host once the plain results
+    # are in, while the card runs the phases up to the substrate slice
+    sweep = pool.submit(dryrun_sweep_on_host)
+    for row in kernels:
+        name = row["name"]
+        check(late_errs[name] == 0, f"{name} differs from its plain "
+                                    f"version by {late_errs[name]}")
+        row["max_abs_err"] = max(row["max_abs_err"], late_errs[name])
 
     # the dense-model slice
     attn_errs = {"flash_attention": 0.0, "decode_attention": 0.0}
@@ -4972,12 +5256,15 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
 
     # the mesh slice: the multi-device paths over the card's ranks, their
     # launches counted in the ranks, from 0
-    mesh_launches = phase_mesh_serve(dev, card)
+    mesh_launches = dict.fromkeys(MESH_KERNELS, 0)
+    mesh_launches.update(phase_mesh_serve(dev, card))
     torch.cuda.empty_cache()
-    mesh_launches["flash_attention"] += phase_mesh_gspmd_serve(
-        dev, card)["flash_attention"]
-    mesh_launches.update(phase_mesh_fleet(card))
-    phase_mesh_compress(card)
+    # gspmd serving, then the fleet and compress bodies, in one job
+    gspmd, jobs = phase_mesh_gspmd_serve(dev, card, room)
+    for name, n in gspmd.items():
+        mesh_launches[name] += n
+    mesh_launches.update(phase_mesh_fleet(card, jobs["mesh_fleet"]))
+    phase_mesh_compress(card, jobs["mesh_compress"])
     for row in kernels:
         if row["name"] in MESH_KERNELS:
             n = mesh_launches[row["name"]]

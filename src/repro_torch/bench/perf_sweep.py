@@ -19,8 +19,9 @@ PyTorch port of `benchmarks/perf_sweep.py`, at its sizes:
 3. **Interleaved fast path vs the reference machine** on preempted
    fig6-style grids at P=2..4, with the `interleave_window` sweep
    (`PG_WINDOWS`; the window is live in the port).
-4. **Stacked cold-bitstream pass vs the per-cell reference loop** on the
-   bitstream_study grid.
+4. **Stacked cold-bitstream pass vs the reference machine** on the
+   bitstream_study grid (every capacity's cells lanes of one loop, each
+   lane's bitstream cache a masked block of the largest).
 5. **Resumable interleaved engine vs the reference machine** on a
    state-seeded P=3 segment; results and final states (through the
    port's canonical state) compared.
@@ -321,13 +322,14 @@ def bench_preempted_grid(device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 4. cold-bitstream grid: stacked Mattson pass vs the per-cell reference
+# 4. cold-bitstream grid: stacked Mattson pass vs the reference machine
 # ---------------------------------------------------------------------------
 
 
 def bench_cold_bitstream(device="cuda") -> dict:
     """bitstream_study's {capacity x penalty} grid: one stacked-pass
-    `sweep_bitstream` call vs the per-cell reference-machine loop."""
+    `sweep_bitstream` call vs the reference machine (one step loop, every
+    cell a lane)."""
     dev = resolve_device(device)
     trs = np.stack([traces.build_trace(n, BS_TRACE_LEN)
                     for n in traces.FM_BENCHES])

@@ -741,14 +741,16 @@ def _scan_lanes(ptags: torch.Tensor, pcosts: torch.Tensor,
                 lane_fleet: torch.Tensor, miss_latency: torch.Tensor,
                 active_slots: torch.Tensor, quanta: torch.Tensor,
                 schedule: torch.Tensor, handler: int, bs_miss_extra,
-                state: FleetState, total_steps: int) -> FleetState:
+                state: FleetState, total_steps: int,
+                bs_active: torch.Tensor | None = None) -> FleetState:
     """Step every lane's round-robin machine `total_steps` accesses.
 
     `ptags`/`pcosts` are the (B, P, N) pre-gathered streams, `lane_fleet`
     (lanes,) picks each lane's fleet, `miss_latency`/`active_slots`
     (lanes,) and `quanta` (lanes, P) are the lanes' coordinates (and
-    `bs_miss_extra`, an int or a (lanes,) tensor), `state` a
-    FleetState with a leading lane axis.  Mirrors the reference's
+    `bs_miss_extra`, an int or a (lanes,) tensor, and `bs_active`, None
+    or the (lanes,) bitstream-cache sizes masking a cache of
+    `state.bs_st`'s), `state` a FleetState with a leading lane axis.  Mirrors the reference's
     `_fleet_step_fn` (the access pays its hw cost, a slot miss its latency,
     a bitstream miss its penalty; the expiring access's program pays the
     handler; caches persist across switches).  On the card the steps run
@@ -767,7 +769,7 @@ def _scan_lanes(ptags: torch.Tensor, pcosts: torch.Tensor,
         flat = (row_base + p) * trace_len + i.long()
         tag = flat_tags[flat]
         slot_st, bs_st, hit, bs_hit = slots.lookup_fused(
-            c.slot_st, c.bs_st, tag, active_slots)
+            c.slot_st, c.bs_st, tag, active_slots, bs_active)
         miss = ~hit
         bs_miss = ~(hit | bs_hit)
         cost = (flat_costs[flat] + miss.to(torch.int32) * miss_latency
@@ -1347,8 +1349,8 @@ def sweep_bitstream(traces, scenario: isa.SlotScenario, *, slot_counts,
     capacity x bitstream penalty}: (B, N) traces -> `ColdGrid` with
     (B, K, L, E, X) cycles, (B, K) slot misses and (B, K, E) bitstream
     misses.  Eligible runs take the stacked Mattson pass; `path="scan"`
-    runs the reference machine (the parity reference), one step loop a
-    bitstream capacity with every other cell a lane of it."""
+    runs the reference machine (the parity reference), one step loop with
+    every cell a lane of it."""
     dev = _device(device)
     traces = _i32(traces, dev)
     if traces.dim() != 2:
@@ -1376,33 +1378,31 @@ def sweep_bitstream(traces, scenario: isa.SlotScenario, *, slot_counts,
             traces, scenario.instr_tag, isa.INSTR_HW_CYCLES, counts, lats,
             caps, extras, num_tags=max(scenario.num_tags, 1),
             total_steps=total_steps)
-    # the reference machine: each capacity's (trace, slot count, latency,
-    # penalty) cells are the lanes of one step loop (slot counts mask a
-    # disambiguator of the largest count; slot and bitstream misses do
-    # not depend on the latency/penalty axes in an unpreempted run)
+    # the reference machine: every (capacity, trace, slot count, latency,
+    # penalty) cell a lane of one step loop (slot counts and capacities
+    # mask a disambiguator and a bitstream cache of the largest; slot and
+    # bitstream misses do not depend on the latency/penalty axes in an
+    # unpreempted run, nor slot misses on the capacity)
     b = traces.shape[0]
     ptags, pcosts = _gather(traces[:, None, :], scenario.instr_tag[None, :])
-    shape = (b, counts.size, lats.size, extras.size)
-    bi, ki, li, xi = (x.reshape(-1) for x in torch.meshgrid(
+    shape = (caps.size, b, counts.size, lats.size, extras.size)
+    ei, bi, ki, li, xi = (x.reshape(-1) for x in torch.meshgrid(
         *(torch.arange(n, device=dev) for n in shape), indexing="ij"))
     lanes = bi.shape[0]
-    c, l, x = (_i32(a, dev) for a in (counts, lats, extras))
-    cycles, slot_misses, bs_misses = [], None, []
-    for cap in caps:
-        final = _scan_lanes(
-            ptags, pcosts, bi, l[li], c[ki],
-            torch.full((lanes, 1), NO_PREEMPT_QUANTUM, dtype=torch.int32,
-                       device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev), 0, x[xi],
-            _init_lanes(lanes, 1, int(counts.max()), int(cap), dev),
-            total_steps)
-        cycles.append(final.cycles[:, 0].reshape(shape))
-        # every (latency, penalty) lane of a (trace, slot count) agrees
-        slot_misses = final.misses[:, 0].reshape(shape)[:, :, 0, 0]
-        bs_misses.append(final.bs_misses[:, 0].reshape(shape)[:, :, 0, 0])
+    c, l, x, e = (_i32(a, dev) for a in (counts, lats, extras, caps))
+    final = _scan_lanes(
+        ptags, pcosts, bi, l[li], c[ki],
+        torch.full((lanes, 1), NO_PREEMPT_QUANTUM, dtype=torch.int32,
+                   device=dev),
+        torch.zeros(1, dtype=torch.int32, device=dev), 0, x[xi],
+        _init_lanes(lanes, 1, int(counts.max()), int(caps.max()), dev),
+        total_steps, bs_active=e[ei])
+    cut = lambda y: y[:, 0].reshape(shape)  # noqa: E731
     return stackdist_cold.ColdGrid(
-        cycles=torch.stack(cycles, dim=3),            # (B, K, L, E, X)
-        slot_misses=slot_misses, bs_misses=torch.stack(bs_misses, dim=2))
+        cycles=cut(final.cycles).permute(1, 2, 3, 0, 4).contiguous(),
+        slot_misses=cut(final.misses)[0, :, :, 0, 0].contiguous(),
+        bs_misses=cut(final.bs_misses)[:, :, :, 0, 0].permute(
+            1, 2, 0).contiguous())
 
 
 # --- pair path: the P=2 special case

@@ -123,15 +123,15 @@ def lookup(state: SlotState, tag, num_active=None) -> LookupResult:
 
 
 def lookup_fused(slot_state: SlotState, bs_state: SlotState, tag,
-                 num_active=None):
+                 num_active=None, bs_active=None):
     """One fused disambiguator + bitstream-cache access — the fleet scan's
     hot pair.  Semantically `lookup(slot_state, tag, num_active)` followed
-    by `lookup(bs_state, where(hit, -1, tag))`; returns
+    by `lookup(bs_state, where(hit, -1, tag), bs_active)`; returns
     (slot_state, bs_state, hit, bs_hit)."""
     tag = _as_i32(tag, slot_state.tags)
     slot_state, hit, _, _, _ = _access(slot_state, tag, num_active)
     bs_state, bs_hit, _, _, _ = _access(
-        bs_state, torch.where(hit, EMPTY, tag))
+        bs_state, torch.where(hit, EMPTY, tag), bs_active)
     return slot_state, bs_state, hit, bs_hit
 
 

@@ -127,13 +127,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(p, x, cfg):
+def apply_mlp(p, x, cfg, mm=torch.matmul):
+    """The MLP; `mm` takes its last product (`wo`'s)."""
     if cfg.mlp in ("swiglu", "gelu_glu"):
         act = F.silu if cfg.mlp == "swiglu" else _gelu
         h = act(x @ p["wg"]) * (x @ p["wi"])
     else:
         h = _gelu(x @ p["wi"])
-    return h @ p["wo"]
+    return mm(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -68,18 +68,22 @@ def _conv1d_causal(u, kernel, state=None):
     return out, ext[:, -(cw - 1):].float()
 
 
-def rec_block(p, x, state, cfg, use_kernel=None):
+def rec_block(p, x, state, cfg, use_kernel=None, mm=torch.matmul):
     """Full Griffin recurrent block.  state: {"h": (B,W) f32, "conv":
-    (B,cw-1,W) f32} or None.  Returns (out, new_state)."""
+    (B,cw-1,W) f32} or None.  Returns (out, new_state).  With a block of
+    the W channels (the columns of wx, wgate and conv, the gates, the
+    state and the rows of wout) `out` is this block's term of the sum
+    over the channels.  `mm` takes the last product (`wout`'s)."""
     u = x @ p["wx"]
     u_c, conv_state = _conv1d_causal(u, p["conv"],
                                      state["conv"] if state else None)
-    h0 = state["h"] if state else None
-    h, h_last = _scan.rglru_scan(u_c, p["w_r"], p["b_r"], p["w_i"],
-                                 p["b_i"], p["lam"], h0,
-                                 use_kernel=use_kernel)
+    h0 = state["h"].contiguous() if state else None
+    # a rank's block of the gates may be a view; the kernel takes them
+    # contiguous
+    gates = (p[k].contiguous() for k in ("w_r", "b_r", "w_i", "b_i", "lam"))
+    h, h_last = _scan.rglru_scan(u_c, *gates, h0, use_kernel=use_kernel)
     gate = _gelu(x @ p["wgate"])
-    out = (h.to(x.dtype) * gate) @ p["wout"]
+    out = mm(h.to(x.dtype) * gate, p["wout"])
     return out, {"h": h_last, "conv": conv_state}
 
 

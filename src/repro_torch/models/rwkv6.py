@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import rwkv6_scan as _scan
 
 __all__ = ["LORA_RANK", "init_rwkv_block", "time_mix_inputs", "time_mix",
-           "channel_mix", "init_rwkv_state"]
+           "channel_mix_terms", "channel_mix", "init_rwkv_state"]
 
 LORA_RANK = 32
 
@@ -72,11 +72,14 @@ def _token_shift(x, x_prev):
     return prev - x  # RWKV convention: xx = shifted - x
 
 
-def time_mix_inputs(p, x, x_prev, cfg):
-    """Returns per-stream mixed inputs and the decay/gate tensors."""
+def time_mix_inputs(p, x, x_prev, cfg, cols: slice | None = None):
+    """Returns per-stream mixed inputs and the decay/gate tensors.  The
+    LoRA deltas, the mixes and the decay's d_t are computed over the
+    whole width of x; `p`'s wr/wk/wv/wg may hold a block of the columns
+    (a block of the heads), and `cols` takes the same block of the
+    decay (all of it when None)."""
     b, t, d = x.shape
     n = cfg.head_dim
-    h = d // n
     xx = _token_shift(x, x_prev)
     lora_a, lora_b = p["lora_a"].float(), p["lora_b"].float()
     lora = torch.tanh((x + xx * p["mu"][0]).float() @ lora_a)
@@ -85,14 +88,16 @@ def time_mix_inputs(p, x, x_prev, cfg):
         (p["mu"][None, None].to(x.dtype) + delta.to(x.dtype))
     xr, xk, xv, xw, xg = mixed.unbind(2)
 
-    r = (xr @ p["wr"]).reshape(b, t, h, n)
-    k = (xk @ p["wk"]).reshape(b, t, h, n)
-    v = (xv @ p["wv"]).reshape(b, t, h, n)
+    r = (xr @ p["wr"]).reshape(b, t, -1, n)
+    k = (xk @ p["wk"]).reshape(b, t, -1, n)
+    v = (xv @ p["wv"]).reshape(b, t, -1, n)
     g = F.silu(xg @ p["wg"])
     # data-dependent per-channel decay, in log space:
     #   w = exp(-exp(d))  =>  log w = -exp(d)
     d_t = p["w0"].float() + (xw.float() @ lora_a @ lora_b[:, :d]) * 0.1
-    logw = -torch.exp(d_t).reshape(b, t, h, n)  # <= 0
+    if cols is not None:
+        d_t = d_t[..., cols]
+    logw = -torch.exp(d_t).reshape(b, t, -1, n)  # <= 0
     return r, k, v, logw, g
 
 
@@ -105,25 +110,36 @@ def _head_groupnorm(o, scale, bias, eps=64e-5):
     return (of - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def time_mix(p, x, x_prev, state0, cfg, use_kernel=None):
+def time_mix(p, x, x_prev, state0, cfg, use_kernel=None,
+             cols: slice | None = None, mm=torch.matmul):
     """Full RWKV6 attention replacement.  state0: (B,H,N,N) f32 or None
-    (zero).  Returns (out, x_last, state)."""
-    b, t, d = x.shape
-    r, k, v, logw, g = time_mix_inputs(p, x, x_prev, cfg)
-    o, state = _scan.rwkv6_scan(r, k, v, logw, p["u"], state0,
+    (zero).  Returns (out, x_last, state).  With a block of the heads
+    (`time_mix_inputs`' `cols`, and the blocks of u, ln_o, ln_o_b, the
+    state and the rows of wo) `out` is this block's term of the sum over
+    the heads.  `mm` takes the last product (`wo`'s)."""
+    b, t, _ = x.shape
+    r, k, v, logw, g = time_mix_inputs(p, x, x_prev, cfg, cols)
+    o, state = _scan.rwkv6_scan(r, k, v, logw, p["u"].contiguous(), state0,
                                 use_kernel=use_kernel)
     o = _head_groupnorm(o, p["ln_o"], p["ln_o_b"])
-    o = o.reshape(b, t, d).to(x.dtype) * g
-    return o @ p["wo"], x[:, -1, :], state
+    o = o.reshape(b, t, -1).to(x.dtype) * g
+    return mm(o, p["wo"]), x[:, -1, :], state
 
 
-def channel_mix(p, x, x_prev):
-    """RWKV6 FFN.  Returns (out, x_last)."""
+def channel_mix_terms(p, x, x_prev, mm=torch.matmul):
+    """The channel mix's value product (kk @ cv, taken by `mm`; a pending
+    sum when ck/cv hold a block of d_ff) and its gate's input xr."""
     xx = _token_shift(x, x_prev)
     xk = x + xx * p["mu_cm"][0].to(x.dtype)
     xr = x + xx * p["mu_cm"][1].to(x.dtype)
     kk = torch.square(torch.relu(xk @ p["ck"]))
-    return torch.sigmoid(xr @ p["cr"]) * (kk @ p["cv"]), x[:, -1, :]
+    return mm(kk, p["cv"]), xr
+
+
+def channel_mix(p, x, x_prev):
+    """RWKV6 FFN.  Returns (out, x_last)."""
+    kv, xr = channel_mix_terms(p, x, x_prev)
+    return torch.sigmoid(xr @ p["cr"]) * kv, x[:, -1, :]
 
 
 def init_rwkv_state(cfg, batch: int, device="cuda"):

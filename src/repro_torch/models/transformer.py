@@ -68,13 +68,24 @@ positions (`q_offset`, and the RoPE positions of its block) against the
 all-gathered K/V; head-TP expands GQA K/V to one head a query head
 first (`_expand_kv`), as the reference; the logits are vocab-sharded.
 MoE blocks run `moe.moe_apply_sharded` on the rank's rows and experts.
-A decode step attends through `kvcache.decode_attention_sharded` over
-the rank's block of each full-attention cache (`init_cache(...,
-shd=plan)` allocates only that block; batch over the data axes,
-sequence over `model`), and prefill returns each rank's cache block in
-that decode layout (`plan.cache_specs`).  Returned logits are the
-rank's block by `act_spec("logits")`.  The recurrent and local-attention
-blocks raise under a plan, and so does training (`loss_fn`).
+The recurrent blocks gather their rmsnormed input over the sequence
+(their conv, token shift and scan run along time) and run on the rank's
+block of the channels: RG-LRU's `rglru_scan` on its W/tp channels,
+RWKV6's `rwkv6_scan` on its H/tp heads (the LoRA deltas, mixes and
+decay computed over the whole width), each block's row-parallel output
+summed back into the residual's layout; RWKV's channel mix sums
+kk @ cv over d_ff before the replicated gate multiplies it.  Local
+attention runs flash with the window on the rank's heads (or on its
+block of the queries at their `q_offset` under `seq`).  A decode step
+attends through `kvcache.decode_attention_sharded` over the rank's
+block of each full-attention cache (batch over the data axes, sequence
+over `model`) and through the window decode over its rows of a window
+cache; `init_cache(..., shd=plan)` allocates only the rank's block of
+every leaf by `plan.cache_specs` (the recurrent states' channels and
+heads over `model`), and prefill returns each rank's blocks in that
+decode layout.  Returned logits are the rank's block by
+`act_spec("logits")`.  Training under a plan raises (`loss_fn`, the
+train-mode forward).
 """
 from __future__ import annotations
 
@@ -104,16 +115,6 @@ def check_plan(shd) -> ShardingPlan | None:
             f"shd must be a repro_torch.sharding.ShardingPlan or None, not "
             f"{type(shd).__module__}.{type(shd).__name__}")
     return shd
-
-
-def _check_layouts(cfg, plan) -> None:
-    """Raise for the blocks whose layouts under a plan are not ported."""
-    types = {t for ts, _ in segments(cfg) for t in ts}
-    if plan is not None and types - {"attn", "moe"}:
-        raise NotImplementedError(
-            f"{cfg.name} under a ShardingPlan: the layouts of its "
-            f"{sorted(types - {'attn', 'moe'})} blocks are not ported; "
-            f"run it with shd=None")
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +155,25 @@ def _tree_stack(trees):
     return torch.stack(trees)
 
 
+def _cat_layers(trees: list):
+    """Per-layer trees whose leaves are (1, ...) slices, concatenated
+    along dim 0 one leaf at a time, each layer's copy of a leaf dropped
+    from `trees` as soon as the leaf is stacked."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _cat_layers([t.pop(k) for t in trees]) for k in list(first)}
+    if isinstance(first, list):
+        out = []
+        for i in range(len(first)):
+            out.append(_cat_layers([t[i] for t in trees]))
+            for t in trees:
+                t[i] = None
+        return out
+    out = torch.cat(trees)
+    trees.clear()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -181,30 +201,45 @@ def _init_block(btype: str, gen: torch.Generator, cfg, device):
     return p
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda"):
+def init_params(cfg, generator: torch.Generator, device="cuda", keep=None):
     """Random parameters from `generator` (a `torch.Generator` on
-    `device`): the JAX package's tree, leaf shapes, dtypes and scales."""
+    `device`): the JAX package's tree, leaf shapes, dtypes and scales.
+
+    `keep(name, leaf)`, where given, is applied to every leaf as soon as
+    it is drawn, and only what it returns is kept: a segment's leaves
+    one layer at a time, each as the (1, ...) slice of its stacked leaf
+    (`name` the stacked leaf's path), a MoE block's experts stacked.  So
+    a rank can draw a model it cannot hold whole and keep its blocks
+    (`plan.local_shard` of each), with one layer whole at a time.  The
+    layers are stacked one leaf at a time; the draws are the same with
+    or without `keep`."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype
+    keep = keep or (lambda name, leaf: leaf)
     params: dict[str, Any] = {}
     if cfg.embed_inputs:
-        params["embed"] = torch.randn(
+        params["embed"] = keep("embed", torch.randn(
             (cfg.vocab, cfg.d_model), generator=generator, dtype=dt,
-            device=dev) * cfg.d_model ** -0.5
+            device=dev) * cfg.d_model ** -0.5)
     segs = []
-    for types, n in segments(cfg):
-        seg = _tree_stack([[_init_block(t, generator, cfg, dev)
-                            for t in types] for _ in range(n)])
+    for si, (types, n) in enumerate(segments(cfg)):
+        seg = _cat_layers([map_with_path(
+            lambda name, leaf: keep(name, leaf[None]),
+            [_init_block(t, generator, cfg, dev) for t in types],
+            ("segments", si)) for _ in range(n)])
         for j, t in enumerate(types):
             if t == "moe":
-                seg[j]["moe"] = moe.init_moe(generator, cfg, n, dev)
+                seg[j]["moe"] = map_with_path(
+                    keep, moe.init_moe(generator, cfg, n, dev),
+                    ("segments", si, j, "moe"))
         segs.append(seg)
     params["segments"] = segs
-    params["final_norm"] = layers.init_rmsnorm(cfg.d_model, dev)
+    params["final_norm"] = keep("final_norm",
+                                layers.init_rmsnorm(cfg.d_model, dev))
     if not cfg.tie_embeddings:
-        params["head"] = torch.randn(
+        params["head"] = keep("head", torch.randn(
             (cfg.d_model, cfg.vocab), generator=generator, dtype=dt,
-            device=dev) * cfg.d_model ** -0.5
+            device=dev) * cfg.d_model ** -0.5)
     return params
 
 
@@ -226,7 +261,7 @@ def init_cache(cfg, batch: int, length: int, device="cuda", shd=None):
     "v"} of (n, batch, length, KH, Dh) for "attn"/"moe", of (n, batch,
     window, KH, Dh) for "lattn"; the f32 states {"h", "conv"} of "rec" and
     {"s", "shift_tm", "shift_cm"} of "rwkv".  Under a plan (`shd`) only
-    this rank's block of each "attn"/"moe" K/V leaf is allocated."""
+    this rank's block of each leaf by `cache_specs` is allocated."""
     plan = check_plan(shd)
     if plan is not None:
         dev = resolve_device(device)
@@ -298,21 +333,22 @@ def _prefill_cache(cfg, k, v, window):
             "v": torch.nn.functional.pad(v, pad)}
 
 
-def _local_attention(q, k, v, window, use_kernel=None):
+def _local_attention(q, k, v, window, use_kernel=None, q_offset=0):
     """Exact sliding-window attention: one causal, windowed call over the
     whole sequence.  The JAX model cuts a prompt longer than the window
     into window-sized chunks, each attending over itself and its
     predecessor (the two-chunk trick, which bounds a TPU kernel's work a
     chunk); that is the same function, and the flash kernel already skips
     key tiles older than the window.  The JAX model's precondition is
-    kept: T <= window or T a multiple of it."""
-    t = q.shape[1]
+    kept on the whole prompt (k's T): T <= window or T a multiple of it.
+    q may be a block of the prompt's queries at `q_offset`."""
+    t = k.shape[1]
     if t > window and t % window:
         raise ValueError(
             f"local attention over {t} tokens needs T <= window ({window}) "
             f"or T a multiple of the window, as in the JAX model")
     return layers.flash_attention(q, k, v, causal=True, window=window,
-                                  use_kernel=use_kernel)
+                                  q_offset=q_offset, use_kernel=use_kernel)
 
 
 def _expand_kv(k, g: int):
@@ -389,15 +425,18 @@ def _attention(p, x, cache, ctx, window: int, ps=None):
             # a sequence block of q sits at its global positions
             q_offset = plan.block(ctx.bt[1], qh[1]).start or 0
         if window:
-            o = _local_attention(q, kq, vq, window, ctx.use_kernel)
+            o = _local_attention(q, kq, vq, window, ctx.use_kernel, q_offset)
         else:
             o = layers.flash_attention(q, kq, vq, causal=True,
                                        q_offset=q_offset,
                                        use_kernel=ctx.use_kernel)
         new_cache = None
         if ctx.mode == "prefill":
-            if plan is not None:   # the decode layout: sequence over model
-                cs = plan.cache_spec("0/0/k", (1,) + ctx.bt + tuple(
+            if plan is not None:
+                # the decode layout: a full cache's sequence over model; a
+                # window cache (rows only) made from the whole prompt
+                length = cfg.window if window else ctx.bt[1]
+                cs = plan.cache_spec("0/0/k", (1, ctx.bt[0], length) + tuple(
                     kc.shape[2:]))[1:]
                 kc = plan.relayout(kc, ks, cs)
                 vc = plan.relayout(vc, ks, cs)
@@ -410,8 +449,20 @@ def _attention(p, x, cache, ctx, window: int, ps=None):
     # row-parallel wo: this rank's rows of o, then a sum over them
     rows = ps["attn"]["wo"][0]
     o = plan.relayout(o, aos, aos[:2] + (rows,))
-    return ctx.act(o @ p["attn"]["wo"], "hidden", aos[:2] + (None,),
-                   partial=rows), new_cache
+    return ctx.act(_row_parallel(ctx, rows)(o, p["attn"]["wo"]), "hidden",
+                   aos[:2] + (None,), partial=rows).to(x.dtype), new_cache
+
+
+def _row_parallel(ctx, rows):
+    """The product `a @ w` of a block of w whose rows split over `rows`
+    (the compute spec's entry): where that leaves a sum over more than
+    one rank pending, this rank's term in f32, so that the sum is rounded
+    to the activations' dtype once, after it, as the one-rank product's
+    f32 accumulator is; else the plain product."""
+    if ctx.shd is None or rows is None or ctx.shd._size(rows) == 1:
+        return torch.matmul
+    return lambda a, w: a @ w if a.dtype == torch.float32 \
+        else a.float() @ w.float()
 
 
 def _carry_state(cache, new, ctx):
@@ -429,11 +480,76 @@ def _mlp_sum(p, h, ctx, ps=None, name="mlp"):
     """An MLP on `h` (laid out as "mlp_in") into the "hidden" layout:
     under a plan wi/wg are column-parallel and wo row-parallel, the
     sum over wo's rows taken by `ctx.act`."""
-    out = layers.apply_mlp(p[name], h, ctx.cfg)
     if ctx.shd is None:
-        return out
+        return layers.apply_mlp(p[name], h, ctx.cfg)
+    rows = ps[name]["wo"][0]
+    out = layers.apply_mlp(p[name], h, ctx.cfg, _row_parallel(ctx, rows))
     return ctx.act(out, "hidden", ctx.spec("mlp_in", ctx.cfg.d_model),
-                   partial=ps[name]["wo"][0])
+                   partial=rows).to(h.dtype)
+
+
+def _rows(x, ctx):
+    """A "hidden" block (B_loc, T_loc, D) with its sequence put back
+    together: this rank's rows, T and D whole."""
+    hid = ctx.spec("hidden", ctx.cfg.d_model)
+    return ctx.shd.relayout(x, hid, hid[:1])
+
+
+def _rec_sharded(p, x, cache, ctx, ps):
+    """An RG-LRU block on this rank's block of the W channels: the
+    rmsnormed input gathered over the sequence (the conv and the scan run
+    along time), the rank's columns of wx/wgate/conv, gates and state,
+    and its rows of wout, whose sum over the channels is relaid into the
+    residual's layout; then the block's MLP as the attention blocks'."""
+    cfg = ctx.cfg
+    hid = ctx.spec("hidden", cfg.d_model)
+    h = _rows(layers.rmsnorm(x, p["ln1"]), ctx)
+    rows = ps["rec"]["wout"][0]
+    o, new = rglru.rec_block(p["rec"], h, cache, cfg, ctx.use_kernel,
+                             _row_parallel(ctx, rows))
+    x = x + ctx.act(o, "hidden", hid[:1], partial=rows).to(x.dtype)
+    h2 = ctx.act(layers.rmsnorm(x, p["ln2"]), "mlp_in", hid)
+    return x + _mlp_sum(p, h2, ctx, ps), new
+
+
+def _rwkv_sharded(p, x, cache, ctx, ps):
+    """An RWKV6 block on this rank's block of the heads and of d_ff.  Time
+    mix: the rmsnormed input gathered over the sequence (the token shift
+    and the scan run along time), the LoRA deltas, the mixes and the
+    decay over the whole width, the rank's columns of wr/wk/wv/wg and of
+    the decay, its heads of u, ln_o, ln_o_b and the state, its rows of
+    wo; the sum over the heads relaid into the residual's layout.
+    Channel mix: kk @ cv summed over d_ff first, then multiplied by the
+    gate sigmoid(xr @ cr), computed (cr whole) for the residual's rows
+    alone.  The token shifts hold the whole width of the rank's rows."""
+    cfg, plan = ctx.cfg, ctx.shd
+    hid = ctx.spec("hidden", cfg.d_model)
+    b = x.shape[0]
+    cols = ps["wr"][1]
+    if cols != ps["u"][0]:
+        raise ValueError(
+            f"{cfg.name}: wr's columns split over {cols!r} but its heads "
+            f"over {ps['u'][0]!r}: the heads must split with the columns")
+    if cache is None:
+        shift_tm = shift_cm = x.new_zeros((b, cfg.d_model))
+        s0 = None
+    else:
+        shift_tm, shift_cm = (cache[k].to(x.dtype)
+                              for k in ("shift_tm", "shift_cm"))
+        s0 = cache["s"].contiguous()
+    h = _rows(layers.rmsnorm(x, p["ln1"]), ctx)
+    o, x_last_tm, s_new = rwkv6.time_mix(
+        p, h, shift_tm, s0, cfg, ctx.use_kernel,
+        plan.block(cfg.d_model, cols), _row_parallel(ctx, ps["wo"][0]))
+    x = x + ctx.act(o, "hidden", hid[:1], partial=ps["wo"][0]).to(x.dtype)
+    h2 = _rows(layers.rmsnorm(x, p["ln2"]), ctx)
+    kv, xr = rwkv6.channel_mix_terms(p, h2, shift_cm,
+                                     _row_parallel(ctx, ps["cv"][0]))
+    kv = ctx.act(kv, "hidden", hid[:1], partial=ps["cv"][0]).to(x.dtype)
+    xr = plan.relayout(xr, hid[:1], hid)
+    x = x + torch.sigmoid(xr @ p["cr"]) * kv
+    return x, {"s": s_new, "shift_tm": x_last_tm.float(),
+               "shift_cm": h2[:, -1, :].float()}
 
 
 def apply_block(btype, p, x, cache, ctx, ps=None):
@@ -467,6 +583,10 @@ def apply_block(btype, p, x, cache, ctx, ps=None):
         if cfg.dense_ff_residual:
             mo = mo + _mlp_sum(p, h, ctx, ps, "dense")
         return x + mo, new_cache, aux
+    if btype in ("rwkv", "rec") and ctx.shd is not None:
+        block = _rwkv_sharded if btype == "rwkv" else _rec_sharded
+        x, new = block(p, x, cache, ctx, ps)
+        return x, _carry_state(cache, new, ctx), aux
     if btype == "rwkv":
         st = cache if cache is not None else rwkv6.init_rwkv_state(
             cfg, x.shape[0], x.device)
@@ -656,7 +776,6 @@ def _shard_batch(cfg, batch, plan) -> tuple[dict, tuple]:
     the global (B, T)) under a plan; (batch, ()) without one."""
     if plan is None:
         return batch, ()
-    _check_layouts(cfg, plan)
     x = batch["tokens"] if "tokens" in batch else batch["embeds"]
     rows = {k: v for k, v in batch.items() if k != "router_bias"}
     return {**batch, **plan.shard_inputs(rows)}, tuple(x.shape[:2])

@@ -125,24 +125,24 @@ def _plan_batcher(cfg, params, batch_size: int, max_len: int, plan, dev,
     prefill_step = serve_step.make_prefill(cfg, pre, use_kernel)
     decode_step = serve_step.make_decode(cfg, dec, use_kernel)
     cache = transformer.init_cache(cfg, batch_size, max_len, dev, shd=dec)
+    shapes = serve_step.abstract_cache(cfg, batch_size, max_len)
 
     @torch.no_grad()
     def prefill_row(row, tokens):
         t0 = len(tokens)
         _, row_cache, _ = prefill_step(
             params, {"tokens": np.asarray(tokens)[None, :]})
+        row_shapes = serve_step.abstract_cache(cfg, 1, t0)
         for si, (seg, row_seg) in enumerate(zip(cache, row_cache)):
             for j, (dst, src) in enumerate(zip(seg, row_seg)):
                 for name, d in dst.items():
-                    path, s = f"{si}/{j}/{name}", src[name]
-                    # the prompt's positions put back together over model
-                    spec = pre.cache_spec(path, (s.shape[0], 1, t0,
-                                                 *s.shape[3:]))
-                    s = pre.relayout(s, spec, spec[:2])
-                    block = dec.cache_block(
-                        path, (d.shape[0], batch_size, max_len,
-                               *d.shape[3:]))
-                    _write_block(d, s[:, 0], row, t0, *block)
+                    path = f"{si}/{j}/{name}"
+                    # the row's leaf put back together as its prefill
+                    # spec splits it, then this rank's block of it written
+                    spec = pre.cache_spec(path, row_shapes[si][j][name].shape)
+                    s = pre.relayout(src[name], spec, ())
+                    _write_block(d, s[:, 0], row, dec.cache_block(
+                        path, shapes[si][j][name].shape))
 
     @torch.no_grad()
     def decode(tokens, positions):
@@ -174,15 +174,22 @@ def _greedy(logits, plan, shape) -> np.ndarray:
     return idx.cpu().numpy()
 
 
-def _write_block(d, s, row: int, t0: int, rows: slice, seq: slice) -> None:
-    """Write a row's (n, t0, ...) prompt K/V into this rank's block d (n,
-    B_loc, S_loc, ...) of the shared cache, which holds batch rows `rows`
-    and positions `seq` of it: the part of the prompt that falls there."""
+def _write_block(d, s, row: int, block: tuple) -> None:
+    """Write a row's cache leaf s (n, ...) into this rank's block d (n,
+    B_loc, ...) of the shared cache, which holds slice `block[k]` of
+    each dimension k of the shared leaf: the part of s that falls there
+    (of a full cache's time axis, the prompt's prefix)."""
+    rows = block[1]
     if not rows.start <= row < rows.stop:
         return
-    lo, hi = seq.start, min(seq.stop, t0)
-    if hi > lo:
-        d[:, row - rows.start, :hi - lo] = s[:, lo:hi]
+    src, dst = [slice(None)], [slice(None), row - rows.start]
+    for blk, n in zip(block[2:], s.shape[1:]):
+        hi = min(blk.stop, n)
+        if hi <= blk.start:
+            return
+        src.append(slice(blk.start, hi))
+        dst.append(slice(0, hi - blk.start))
+    d[tuple(dst)] = s[tuple(src)]
 
 
 @dataclass

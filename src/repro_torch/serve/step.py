@@ -10,9 +10,11 @@ blocks, and the model places them by the plan
   of the whole tree, or the same blocks made otherwise) and the whole
   batch, cut to this rank's rows inside (`plan.input_shardings`);
 * prefill returns this rank's block of the last-token logits (vocab over
-  `model`), its block of the prompt's cache in the decode layout (batch
-  over the data axes, sequence over `model`: the reference's
-  `out_shardings=cache_sh`) and the expert loads (global);
+  `model`), its block of every leaf of the prompt's cache in the decode
+  layout, the reference's `out_shardings=cache_sh` (`plan.cache_specs`:
+  rows over the data axes; a full K/V cache's sequence, RG-LRU's `h`
+  and `conv` channels and RWKV's `s` heads over `model`; window caches
+  and token shifts rows only) and the expert loads (global);
 * decode takes this rank's block of the cache
   (`transformer.init_cache(..., shd=plan)`) and writes the token into it
   in place, which stands in for the reference's `donate_argnums`.

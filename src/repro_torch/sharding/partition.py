@@ -17,10 +17,13 @@ blocks, and the plan places them itself:
 
 * weights: `shard_params` cuts every leaf by `param_specs` (views):
   column- and row-parallel attention and MLP weights over `model`
-  (`heads`), the experts over `model`, the vocab-sharded embedding and
-  head, and every weight over the data axes under FSDP.  `gather_data`
-  puts a layer's FSDP blocks back together over the data axes just
-  before the layer runs (its `model` blocks stay);
+  (`heads`), RG-LRU's and RWKV's projections, gates and per-head
+  leaves over `model` by channel or head (RWKV's LoRAs, mixes and
+  channel-mix gate `cr` whole), the experts over `model`, the
+  vocab-sharded embedding and head, and every weight over the data
+  axes under FSDP.  `gather_data` puts a layer's FSDP blocks back
+  together over the data axes just before the layer runs (its `model`
+  blocks stay);
 * activations: `act(x, kind, have, partial)` relayouts a rank's block
   from the spec it has (`have`; whole when None) to `act_spec(kind)`
   fitted to the tensor's global shape, the reference's
@@ -31,14 +34,18 @@ blocks, and the plan places them itself:
   (`relayout` is the general move between two specs);
 * inputs: `input_shardings` gives each input's spec (rows over the data
   axes), `shard_inputs` cuts a whole batch to this rank's rows;
-* caches: the full-attention KV caches, batch over the data axes and
-  sequence over `model` (`cache_specs`, `local_shape`, `shard_cache`),
-  each rank attending over its block
-  (`models.kvcache.decode_attention_sharded`).
+* caches: every leaf by `cache_specs` (`local_cache_shape`,
+  `shard_cache`, `cache_block`): the full-attention K/V batch over the
+  data axes and sequence over `model`, each rank attending over its
+  block (`models.kvcache.decode_attention_sharded`); the window K/V of
+  local attention and RWKV's token shifts rows only; the recurrent
+  states rows over the data axes with RG-LRU's `h` and `conv` channels
+  and RWKV's `s` heads over `model`, each rank scanning its channels or
+  heads.
 
-The recurrent families' layouts (RG-LRU, RWKV and local-attention
-blocks), training under a plan and ZeRO-1 optimizer states are not
-ported: the models raise under a plan there.
+Every block type serves under a plan.  Training under a plan and
+ZeRO-1 optimizer states are not ported: the train-mode forward and
+`loss_fn` raise under a plan.
 """
 from __future__ import annotations
 
@@ -441,15 +448,15 @@ class ShardingPlan:
         return {k: self.local_shard(v, specs[k]) for k, v in batch.items()}
 
     def _kv_spec(self, name: str, shape):
-        """The spec of a full-attention K/V leaf of global `shape` (batch
-        over data, sequence over `model`), or None for a leaf that stays
-        whole."""
+        """The spec of cache leaf `name` of global `shape` by `cache_spec`;
+        raises for a full-attention K/V leaf that does not split as
+        (batch over data, sequence over `model`)."""
         shape = tuple(shape)
+        spec = self.cache_spec(name, shape)
         if not (re.search(r"/(k|v)$", name)
                 and shape[2] > max(self.cfg.window, 1)):
-            return None
+            return spec
         want = (None, self.dp, self.model_axis, None, None)
-        spec = self._fit_cache(want, shape)
         if spec != want:
             raise ValueError(
                 f"cache leaf {name} of shape {shape} does not split as "
@@ -459,26 +466,20 @@ class ShardingPlan:
         return spec
 
     def local_cache_shape(self, name: str, leaf) -> tuple:
-        """The shape this rank holds of cache leaf `name` (global `leaf`):
-        a full-attention K/V leaf's block, any other leaf whole."""
+        """The shape of this rank's block of cache leaf `name` (global
+        `leaf`) by `cache_spec`."""
         shape = tuple(leaf.shape)
-        spec = self._kv_spec(name, shape)
-        return shape if spec is None else self.local_shape(shape, spec)
+        return self.local_shape(shape, self._kv_spec(name, shape))
 
     def shard_cache(self, cache):
-        """`cache` with each full-attention K/V leaf cut to this rank's
-        block (a view), every other leaf whole."""
-        def one(name, leaf):
-            spec = self._kv_spec(name, leaf.shape)
-            return leaf if spec is None else self.local_shard(leaf, spec)
-        return map_with_path(one, cache)
+        """`cache` (whole leaves) with every leaf cut to this rank's block
+        by `cache_specs` (views)."""
+        return map_with_path(lambda name, leaf: self.local_shard(
+            leaf, self._kv_spec(name, leaf.shape)), cache)
 
-    def cache_block(self, name: str, leaf_shape) -> tuple | None:
-        """(batch slice, sequence slice) of a full-attention K/V leaf of
-        global `leaf_shape` that this rank holds, or None for a leaf held
-        whole."""
+    def cache_block(self, name: str, leaf_shape) -> tuple:
+        """This rank's slice of every dimension of cache leaf `name` of
+        global `leaf_shape`, by `cache_spec`."""
         spec = self._kv_spec(name, leaf_shape)
-        if spec is None:
-            return None
-        return (self.block(leaf_shape[1], spec[1]),
-                self.block(leaf_shape[2], spec[2]))
+        return tuple(slice(*self.block(d, e).indices(d))
+                     for d, e in zip(leaf_shape, spec))
