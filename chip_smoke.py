@@ -86,7 +86,9 @@ ragged lengths, windows, kv_len 0/1/S; flash also on a block of the
 queries at q_offset 0 and T/2) at test_kernels.py's tolerances;
 runs granite-3-2b at full width, 2 layers, f32, through the kernels and
 holds 9 steps of logits to the JAX package's (constants below, from
-`tests/jax_anchor.py`); checks at full depth in bf16 that prefill plus
+`tests/jax_anchor.py`; the four anchors' numpy weights are drawn by a
+host thread from the start, the seconds they do not wait for printed as
+room made); checks at full depth in bf16 that prefill plus
 decode reproduces the full-sequence logits and that the kernel path
 equals the plain one; then serves 16 requests of granite-3-2b at full
 width and depth through `repro_torch.launch.serve` (the main path of this
@@ -171,7 +173,7 @@ record against itself passes, a copy with one entry 2x slower fails).
 
 The mesh slice (`repro_torch.launch.mesh`, `repro_torch.sharding` and
 the sharded paths), `mesh_serve` one job of the card's ranks and the
-other three one job together (`mesh_tail_rank`)
+other four one job together (`mesh_tail_rank`)
 (`mesh.card_world()`: 2 ranks sharing one card over gloo, collectives
 staged through host copies; NCCL with one rank a card, up to 4, on a
 machine of several), its kernel launches counted in the ranks from 0:
@@ -201,6 +203,17 @@ printed), every request finished, tokens equal across ranks, each
 kernel of the arch launched on its blocks and no other, the
 collectives of a prefill and of a decode step counted by kind, the
 seconds the recurrent pair adds beside the room made for them;
+`mesh_gspmd_train` trains granite-3-2b at full width cut to 4 layers
+(bf16, batch 4 x 1,024, 3 AdamW steps) on (data 1, model R) and (data
+R, model 1) with FSDP and on (data R, model 1) without (ZeRO-1 alone),
+and recurrentgemma-9b cut to one period (batch 2 x 1,024) on (data 1,
+model R), through `launch.train.run(mesh=...)` against one rank's
+`launch.train.run` on the same card, weights and batches: the first
+loss within TRAIN_LOSS_REL, every gradient leaf of the first step (a
+rank's ZeRO-1 block) within DEEP_BF16_REL, resident params, m, v and
+master within 1 % of the specs' count, the same kernel launches and
+plain backwards as one rank's, no decode kernel; it prints the seconds
+it adds beside the room made for it;
 `mesh_fleet` runs fig7's grid
 and the P=4 fleet sweep with the fleet axis sharded over the ranks, the
 rows' sha1s the one-rank phases'; `mesh_compress` holds
@@ -2106,6 +2119,51 @@ def anchor_inputs(vocab: int):
     return tokens, ids
 
 
+# The four JAX anchors' weights are `numpy_params(cfg, 0)` of their
+# configs, ~4.35e9 float32 draws on the host.  A host thread draws them
+# from the script's start (numpy's generators release the GIL), while
+# the card runs the simulator and sched slices; each anchor phase takes
+# its tree, and the seconds of its draw that the phase did not wait for
+# are kept in ANCHOR_ROOM (room made, printed by `mesh_gspmd_train`).
+ANCHOR_DRAWS: dict = {}
+ANCHOR_ROOM: dict = {}
+
+
+def anchor_configs() -> dict:
+    """The anchors' configs (full width, f32, cut in depth), in the order
+    their phases run."""
+    return {"granite": _granite(num_layers=2, dtype="float32"),
+            "arctic": _arctic(num_layers=1, num_experts=8, top_k=2,
+                              capacity_factor=1.25, dtype="float32"),
+            **{a: _recurrent(a, num_layers=ANCHOR_LAYERS[a],
+                             dtype="float32") for a in (RG, RWKV)}}
+
+
+def _drawn(cfg) -> tuple:
+    from repro_torch.models import convert
+    t0 = time.perf_counter()
+    return convert.numpy_params(cfg, 0), time.perf_counter() - t0
+
+
+def start_anchor_draws(pool) -> None:
+    """Queue every anchor's draw on `pool` (one thread), in phase order."""
+    for key, cfg in anchor_configs().items():
+        ANCHOR_DRAWS[key] = (cfg, pool.submit(_drawn, cfg))
+
+
+def anchor_params(key: str, dev) -> tuple:
+    """(the anchor's config, its weights on the card in f32): the tree the
+    host thread drew, or drawn here where no draw was queued (a phase
+    run on its own)."""
+    from repro_torch.models import convert
+    cfg, fut = ANCHOR_DRAWS.pop(key, (anchor_configs()[key], None))
+    t0 = time.perf_counter()
+    tree, drawn_s = _drawn(cfg) if fut is None else fut.result()
+    if fut is not None:
+        ANCHOR_ROOM[key] = drawn_s - (time.perf_counter() - t0)
+    return cfg, convert.params_from_numpy(tree, dev, torch.float32)
+
+
 def _hold_to_anchor(rows, ids, anchor: dict, what: str):
     """Logits rows (steps, V) against a JAX anchor: every compared logit
     within ANCHOR_TOL, and the argmax equal wherever JAX's top-2 gap
@@ -2132,12 +2190,10 @@ def phase_model_jax_anchor(dev) -> None:
     package's (JAX_ANCHOR)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import convert, transformer
+    from repro_torch.models import transformer
     torch.backends.cuda.matmul.allow_tf32 = False
     check(torch.backends.cuda.matmul.allow_tf32 is False, "tf32 is on")
-    cfg = _granite(num_layers=2, dtype="float32")
-    params = convert.params_from_numpy(convert.numpy_params(cfg, 0), dev,
-                                       torch.float32)
+    cfg, params = anchor_params("granite", dev)
     tokens, ids = anchor_inputs(cfg.vocab)
     check(ids.tolist() == JAX_ANCHOR["ids"] and
           hashlib.sha1(tokens.tobytes()).hexdigest() ==
@@ -2646,12 +2702,9 @@ def phase_moe_jax_anchor(dev) -> None:
     argmax and every step's expert load against the JAX package's
     (MOE_JAX_ANCHOR)."""
     from repro_torch.kernels import moe_gmm as gmm
-    from repro_torch.models import convert, transformer
+    from repro_torch.models import transformer
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _arctic(num_layers=1, num_experts=8, top_k=2, capacity_factor=1.25,
-                  dtype="float32")
-    params = convert.params_from_numpy(convert.numpy_params(cfg, 0), dev,
-                                       torch.float32)
+    cfg, params = anchor_params("arctic", dev)
     tokens, ids = anchor_inputs(cfg.vocab)
     check(ids.tolist() == MOE_JAX_ANCHOR["ids"] and
           hashlib.sha1(tokens.tobytes()).hexdigest() ==
@@ -3289,12 +3342,10 @@ def phase_recurrent_jax_anchor(dev, arch: str) -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rgs
     from repro_torch.kernels import rwkv6_scan as rws
-    from repro_torch.models import convert, transformer
+    from repro_torch.models import transformer
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _recurrent(arch, num_layers=ANCHOR_LAYERS[arch], dtype="float32")
+    cfg, params = anchor_params(arch, dev)
     anchor = REC_JAX_ANCHOR[arch]
-    params = convert.params_from_numpy(convert.numpy_params(cfg, 0), dev,
-                                       torch.float32)
     tokens, ids = anchor_inputs(cfg.vocab)
     check(ids.tolist() == anchor["ids"] and
           hashlib.sha1(tokens.tobytes()).hexdigest() ==
@@ -4830,12 +4881,294 @@ def _gspmd_want(cfg, tp: int, coords: dict) -> dict:
     return want
 
 
-def mesh_tail_rank(shared: list, rounds: int) -> dict:
-    """One rank of the job the last three mesh phases share (one start of
-    the ranks for the three): `gspmd_serve_rank`, `mesh_fleet_rank` and
-    `mesh_compress_rank` in turn, and the seconds all three took."""
+# mesh_gspmd_train: training under a plan at full width, cut in depth,
+# through `launch.train.run(mesh=...)` on the card's ranks, each against
+# one rank's `launch.train.run` on the same card, weights (drawn in the
+# parent, seed 0, reaching the ranks by CUDA IPC; each rank copies its
+# blocks) and batches: (name, arch, mesh with "R" the card world's ranks,
+# the plan's fsdp; None: by the parameter count).  granite-3-2b at 4 of
+# its 40 layers falls under FSDP_THRESHOLD, so its FSDP runs pass it;
+# (data R, model 1) without FSDP is ZeRO-1 alone (params replicated, m, v
+# and master cut over data)
+GRANITE_4L, RG_3L = "granite-3-2b-4l", "recurrentgemma-9b-3l"
+GSPMD_TRAIN_RUNS = (
+    ("granite_tp", GRANITE_4L, {"data": 1, "model": "R"}, True),
+    ("granite_fsdp", GRANITE_4L, {"data": "R", "model": 1}, True),
+    ("granite_zero1", GRANITE_4L, {"data": "R", "model": 1}, False),
+    ("recurrentgemma_tp", RG_3L, {"data": 1, "model": "R"}, None))
+# on four or more cards, also the two-dimensional mesh
+GSPMD_TRAIN_2D = ("granite_2d", GRANITE_4L, {"data": 2, "model": "R/2"},
+                  True)
+# (layers of the cut config, batch, seq): granite's training shape;
+# recurrentgemma one period (rec, rec, attn) at batch 2
+GSPMD_TRAIN_SHAPES = {GRANITE_4L: (GRANITE, 4, 4, 1024),
+                      RG_3L: (RG, 3, 2, 1024)}
+GSPMD_TRAIN_STEPS = 3
+# the kernels each run launches, as one rank's run does, and those it
+# must not
+GSPMD_TRAIN_OFF_PATH = ("decode_attention", "moe_gmm_skip")
+
+
+def register_gspmd_train() -> dict:
+    """The cut configs of GSPMD_TRAIN_SHAPES (bf16, full width), in the
+    port's registry under their own names: {name: config}."""
+    from repro_torch.configs import base as cb
+    cb.load_all()
+    return {name: cb.register(dataclasses.replace(
+        cb.get_config(arch), name=name, num_layers=layers, dtype="bfloat16"))
+        for name, (arch, layers, _, _) in GSPMD_TRAIN_SHAPES.items()}
+
+
+@contextlib.contextmanager
+def _spied_updates(record: dict, compare=None):
+    """Wrap `adamw.apply_updates`: each call appends its grad norm to
+    `record["grad_norm"]`; the first call's gradients are kept in
+    `record["grads"]` (cloned), or, with `compare(grads, plan, specs)`,
+    its result in `record["grad_rel"]`."""
+    from repro_torch.optim import adamw
+    from repro_torch.tree_util import leaves, tree_map
+    real = adamw.apply_updates
+    record.setdefault("grad_norm", [])
+
+    def spy(cfg, state, grads, plan=None, specs=None):
+        if "grads" not in record and "grad_rel" not in record:
+            if compare is None:
+                record["grads"] = tree_map(torch.clone, grads)
+            else:
+                record["grad_rel"] = compare(leaves(grads), plan, specs)
+        out = real(cfg, state, grads, plan, specs)
+        record["grad_norm"].append(float(out[1]["grad_norm"]))
+        return out
+
+    adamw.apply_updates = spy
+    try:
+        yield record
+    finally:
+        adamw.apply_updates = real
+
+
+def _train_run(name: str, dev, params, **kw) -> dict:
+    """`launch.train.run` of cut config `name` for GSPMD_TRAIN_STEPS steps
+    at its GSPMD_TRAIN_SHAPES batch, its training kernels' counts from 0."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import train
+    _, _, batch, seq = GSPMD_TRAIN_SHAPES[name]
+    _reset_train_counts()
+    report = train.run(name, smoke=False, steps=GSPMD_TRAIN_STEPS,
+                       batch=batch, seq=seq, log_every=0, device=dev,
+                       init_params=params, **kw)
+    report["counts"] = _train_counts()
+    report["off_path"] = {"decode_attention": da.decode_attention.launches,
+                          "moe_gmm_skip": gmm.moe_gmm_skip.launches}
+    return report
+
+
+def gspmd_train_one_rank(dev) -> tuple[dict, dict]:
+    """The parent's half of `mesh_gspmd_train`: each cut config's weights
+    drawn on the card (seed 0) and trained by one rank's `launch.train.run`
+    on a copy; (the runs' records: losses, grad norms, kernel counts, step
+    seconds, peak memory; {name: (config, weights, the first step's
+    gradients)} for the ranks)."""
+    from repro_torch.models import transformer
+    from repro_torch.tree_util import tree_map
+    one, shared = {}, {}
+    for name, cfg in register_gspmd_train().items():
+        t0 = time.perf_counter()
+        params = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        with _spied_updates({}) as rec:
+            report = _train_run(name, dev, tree_map(torch.clone, params))
+        one[name] = dict(
+            losses=report["losses"], grad_norm=rec["grad_norm"],
+            counts=report["counts"], off_path=report["off_path"],
+            step_s=report["step_s"],
+            peak_gb=round((report["peak_memory_bytes"] or 0) / 1e9, 3),
+            resident_bytes=report["resident_bytes"],
+            seconds=round(time.perf_counter() - t0, 3))
+        shared[name] = (cfg, params, rec["grads"])
+        del report
+        torch.cuda.empty_cache()
+    return one, shared
+
+
+def _state_spec_bytes(cfg, plan) -> dict:
+    """The bytes of a rank's blocks of the train state's params, m, v and
+    master by `train.step.state_shardings` (the launcher's AdamW)."""
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.partition import state_spec_leaves
+    from repro_torch.train import step
+    from repro_torch.tree_util import leaves
+    shapes = step.abstract_state(cfg, adamw.AdamWConfig())
+    specs = step.state_shardings(cfg, plan, shapes)
+    return {f: sum(math.prod(plan.local_shape(tuple(t.shape), sp))
+                   * t.element_size() for t, sp in zip(
+                       leaves(getattr(shapes, f)),
+                       state_spec_leaves(getattr(specs, f))))
+            for f in ("params", "m", "v", "master")}
+
+
+def _grad_gaps(want: list):
+    """A `_spied_updates` comparison: each gradient leaf of this rank (its
+    ZeRO-1 block) against the same block of one rank's (`want`, whole,
+    on the parent's card), relative L2."""
+    from repro_torch.sharding.partition import state_spec_leaves
+
+    def compare(got, plan, specs):
+        rels = []
+        for g, w, sp in zip(got, want, state_spec_leaves(specs.m),
+                            strict=True):
+            w = plan.local_shard(w, sp).to(g.device).float()
+            rels.append(float((g.float() - w).norm()
+                              / w.norm().clamp_min(1e-30)))
+        return rels
+    return compare
+
+
+def gspmd_train_rank(shared: list) -> dict:
+    """One rank of `mesh_gspmd_train`: each of GSPMD_TRAIN_RUNS (and
+    GSPMD_TRAIN_2D on four or more ranks) through `launch.train.run(mesh=
+    ...)`, its kernels and collectives counted from 0, the first step's
+    gradient blocks held to one rank's; its blocks' resident bytes beside
+    the specs' count.  The weights are popped from `shared` and dropped
+    before it returns."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import ShardingPlan
+    from repro_torch.tree_util import leaves
+    weights = shared.pop()
+    dev = _rank_device()
+    world = mesh.world()[0]
+    runs = GSPMD_TRAIN_RUNS + ((GSPMD_TRAIN_2D,) if world >= 4 else ())
+    out = {}
+    for name, arch, axes, fsdp in runs:
+        cfg, params, grads = weights[arch]
+        cb.register(cfg)
+        m = mesh.Mesh({a: world if k == "R" else world // 2 if k == "R/2"
+                       else k for a, k in axes.items()})
+        plan = ShardingPlan(m, cfg, mode="train", fsdp=fsdp)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts = _count_collectives(m)
+        with _spied_updates({}, _grad_gaps(leaves(grads))) as rec:
+            report = _train_run(arch, dev, params, mesh=m, fsdp=fsdp)
+        out[name] = _rank_report(
+            t0, losses=report["losses"], grad_norm=rec["grad_norm"],
+            grad_rel=rec["grad_rel"], counts=report["counts"],
+            off_path=report["off_path"],
+            collectives={k: v / GSPMD_TRAIN_STEPS for k, v in counts.items()},
+            step_s=report["step_s"], resident_bytes=report["resident_bytes"],
+            spec_bytes=_state_spec_bytes(cfg, plan), fsdp=plan.fsdp,
+            coords=dict(m.coords), mesh=dict(m.shape))
+        del report
+        gc.collect()
+        torch.cuda.empty_cache()
+    del weights, params, grads
+    gc.collect()
+    return out
+
+
+def phase_mesh_gspmd_train(card: str, job: tuple, one: dict,
+                           room: dict) -> dict:
+    """mesh_gspmd_train: granite-3-2b at full width cut to 4 layers (bf16,
+    batch 4 x 1,024, 3 AdamW steps) on (data 1, model R) with FSDP
+    (head-TP, 32/R local heads), on (data R, model 1) with FSDP and on
+    (data R, model 1) without (ZeRO-1 alone), and recurrentgemma-9b cut
+    to one period (bf16, batch 2 x 1,024) on (data 1, model R)
+    (`rglru_scan` on 4,096/R channels, windowed flash on 16/R heads),
+    through `launch.train.run(mesh=...)` on the card's ranks, each
+    against one rank's run on the same card, weights and batches: the
+    first loss within TRAIN_LOSS_REL, every gradient leaf of the first
+    step (each rank's ZeRO-1 block) within DEEP_BF16_REL relative L2 of
+    the same block of one rank's, each rank's resident bytes of params,
+    m, v and master within GSPMD_RESIDENT_REL of the specs' count, the
+    training kernels' launches and plain backwards equal to one rank's
+    (flash twice a layer a step and one plain backward: remat's
+    recompute; `rglru_scan` likewise), neither decode attention nor
+    `moe_gmm_skip` launched.  Prints the later losses against one rank's,
+    the grad norms, the collectives a step by kind, step seconds and
+    peak GB a rank, the seconds the phase adds and the room made (`room`,
+    measured in this run).  Returns its flash and `rglru_scan` launches
+    and plain backwards."""
+    from repro_torch.configs import base as cb
+    ranks, world, backend, secs = job
+    runs = {}
+    totals = {k: {"launches": 0, "backward_recomputes": 0}
+              for k in ("flash_attention", "rglru_scan")}
+    for name, arch, _, _ in GSPMD_TRAIN_RUNS + (GSPMD_TRAIN_2D,):
+        if name not in ranks[0]:
+            continue
+        ref, rows = one[arch], []
+        for i, rank in enumerate(ranks):
+            r = rank[name]
+            what = f"mesh_gspmd_train {name} rank {i}"
+            first = abs(r["losses"][0] - ref["losses"][0]) / abs(
+                ref["losses"][0])
+            check(len(r["losses"]) == GSPMD_TRAIN_STEPS
+                  and all(np.isfinite(r["losses"])),
+                  f"{what}: losses {r['losses']}")
+            check(first <= TRAIN_LOSS_REL,
+                  f"{what}: first loss {r['losses'][0]} against one rank's "
+                  f"{ref['losses'][0]}")
+            worst = max(r["grad_rel"])
+            check(worst <= DEEP_BF16_REL,
+                  f"{what}: a gradient leaf {worst} (relative L2) from one "
+                  f"rank's > {DEEP_BF16_REL}")
+            for f, want in r["spec_bytes"].items():
+                got = r["resident_bytes"][f]
+                check(got == want == 0 or abs(got / want - 1)
+                      <= GSPMD_RESIDENT_REL,
+                      f"{what} holds {got} bytes of {f}, the specs give "
+                      f"{want}")
+            check(r["counts"] == ref["counts"],
+                  f"{what}: kernels {r['counts']}, one rank's "
+                  f"{ref['counts']}")
+            check(r["off_path"] == dict.fromkeys(GSPMD_TRAIN_OFF_PATH, 0),
+                  f"{what}: kernels off the path launched {r['off_path']}")
+            for k in totals:
+                for c in totals[k]:
+                    totals[k][c] += r["counts"][k][c]
+            rows.append(dict(
+                first_loss_rel=first,
+                later_loss_rel=[abs(a - b) / abs(b) for a, b in zip(
+                    r["losses"][1:], ref["losses"][1:])],
+                grad_rel_max=worst, grad_norm=r["grad_norm"],
+                resident_gb={f: round(v / 1e9, 4)
+                             for f, v in r["resident_bytes"].items()},
+                **{k: r[k] for k in ("collectives", "step_s", "peak_gb",
+                                     "seconds", "coords")}))
+        base, layers, batch, seq = GSPMD_TRAIN_SHAPES[arch]
+        runs[name] = dict(
+            arch=arch, layers=layers, reduced={"num_layers": [
+                cb.get_config(base).num_layers, layers]}, batch=batch,
+            seq=seq,
+            mesh=ranks[0][name]["mesh"], fsdp=ranks[0][name]["fsdp"],
+            one_rank_losses=ref["losses"], losses=ranks[0][name]["losses"],
+            one_rank_grad_norm=ref["grad_norm"],
+            one_rank_step_s=ref["step_s"], one_rank_peak_gb=ref["peak_gb"],
+            counts=ranks[0][name]["counts"], ranks=rows)
+    added = secs + sum(r["seconds"] for r in one.values())
+    emit("mesh_gspmd_train", world=world, backend=backend, seconds=secs,
+         steps=GSPMD_TRAIN_STEPS, loss_tolerance=TRAIN_LOSS_REL,
+         grad_tolerance=DEEP_BF16_REL, resident_tolerance=GSPMD_RESIDENT_REL,
+         runs=runs, one_rank_s={k: v["seconds"] for k, v in one.items()},
+         added_s=round(added, 3), room_made_s=round(sum(room.values()), 3),
+         room_made_by_s={k: round(v, 3) for k, v in room.items()},
+         nvidia_smi=card)
+    return totals
+
+
+def mesh_tail_rank(shared: list, rounds: int, train: list) -> dict:
+    """One rank of the job the last four mesh phases share (one start of
+    the ranks for them all): `gspmd_serve_rank`, `gspmd_train_rank`,
+    `mesh_fleet_rank` and `mesh_compress_rank` in turn, and the seconds
+    they all took."""
     t0 = time.perf_counter()
     out = {"mesh_gspmd_serve": gspmd_serve_rank(shared)}
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    out["mesh_gspmd_train"] = gspmd_train_rank(train)
+    out["train_s"] = time.perf_counter() - t1
     torch.cuda.reset_peak_memory_stats()
     out["mesh_fleet"] = mesh_fleet_rank()
     torch.cuda.reset_peak_memory_stats()
@@ -4844,7 +5177,7 @@ def mesh_tail_rank(shared: list, rounds: int) -> dict:
     return out
 
 
-def phase_mesh_gspmd_serve(dev, card: str, room: dict
+def phase_mesh_gspmd_serve(dev, card: str, room: dict, train: list
                            ) -> tuple[dict, dict]:
     """granite-3-2b at full width and depth on (data 1, model R) (head-TP
     and Megatron-SP) and (data R, model 1) (FSDP, batch over data),
@@ -4903,7 +5236,7 @@ def phase_mesh_gspmd_serve(dev, card: str, room: dict
     torch.cuda.empty_cache()
     tail, world, backend, secs = _spawn(mesh_tail_rank,
                                         ([(weights, inputs)],
-                                         COMPRESS_ROUNDS))
+                                         COMPRESS_ROUNDS, train))
     ranks = [r["mesh_gspmd_serve"] for r in tail]
     start_s = secs - max(r["bodies_s"] for r in tail)
     room = dict(room, rank_starts=2 * start_s)
@@ -4988,6 +5321,9 @@ def phase_mesh_gspmd_serve(dev, card: str, room: dict
     jobs = {k: ([r[k] for r in tail], world, backend,
                 round(max(r[k]["seconds"] for r in tail), 3))
             for k in ("mesh_fleet", "mesh_compress")}
+    jobs["mesh_gspmd_train"] = ([r["mesh_gspmd_train"] for r in tail], world,
+                                backend, round(max(r["train_s"]
+                                                   for r in tail), 3))
     return launches, jobs
 
 
@@ -5050,6 +5386,9 @@ def main() -> None:
     opts = ap.parse_args()
     load_port()
     card = phase_device()
+    # the anchors' weights, drawn on the host meanwhile
+    draws = ThreadPoolExecutor(1)
+    start_anchor_draws(draws)
     # the plain results of the window kernel's first check are computed
     # by host processes while the card runs the simulator and sched slices
     cases = kernel_vs_plain_cases()
@@ -5061,6 +5400,7 @@ def main() -> None:
         run(opts, card, cases, start_plain(pool, cases), mix, pool)
     finally:
         pool.shutdown(cancel_futures=True)
+        draws.shutdown(cancel_futures=True)
 
 
 def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
@@ -5259,10 +5599,22 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
     mesh_launches = dict.fromkeys(MESH_KERNELS, 0)
     mesh_launches.update(phase_mesh_serve(dev, card))
     torch.cuda.empty_cache()
-    # gspmd serving, then the fleet and compress bodies, in one job
-    gspmd, jobs = phase_mesh_gspmd_serve(dev, card, room)
+    # gspmd serving and training (one rank's training runs first, here),
+    # then the fleet and compress bodies, in one job; the room made for
+    # the training phase: the anchors' draws taken off the card's path
+    train_room = {f"anchor_draw_{k}": v for k, v in ANCHOR_ROOM.items()}
+    train_one, train_shared = gspmd_train_one_rank(dev)
+    torch.cuda.empty_cache()
+    gspmd, jobs = phase_mesh_gspmd_serve(dev, card, room, [train_shared])
+    del train_shared
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
     for name, n in gspmd.items():
         mesh_launches[name] += n
+    trained = phase_mesh_gspmd_train(card, jobs["mesh_gspmd_train"],
+                                     train_one, train_room)
+    for name, n in trained.items():
+        mesh_launches[name] += n["launches"]
     mesh_launches.update(phase_mesh_fleet(card, jobs["mesh_fleet"]))
     phase_mesh_compress(card, jobs["mesh_compress"])
     for row in kernels:
@@ -5271,6 +5623,10 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
             check(n > 0, f"{row['name']} was not launched on the mesh slice")
             row["launches_by_slice"]["mesh"] = n
             row["launches"] += n
+        if row["name"] in trained:
+            row["mesh_train_launches"] = trained[row["name"]]["launches"]
+            row["mesh_train_backward_recomputes"] = \
+                trained[row["name"]]["backward_recomputes"]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,14 @@ the manifest.  So a checkpoint that either package writes restores leaf
 for leaf in the other.  A save is written to a temporary directory and
 renamed into place: a crashed save leaves no manifest, so `latest_step`
 never returns a partial checkpoint.  `restore` checks every sha1 and puts
-the leaves on a device (the JAX package's re-shard onto a mesh has no
-counterpart on one card).
+the leaves on a device.
+
+Under a mesh (`plan`, one process a rank; `specs` the tree's specs, e.g.
+`train.step.state_shardings`) the tree holds each rank's blocks: `save`
+gathers each leaf to its global shape on every rank, one leaf at a time,
+and rank 0 writes it in the same layout, so either package restores it;
+`restore` reads every leaf whole and keeps this rank's block, which is
+the reference's re-shard onto a mesh (`restore(..., shardings)`).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.tree_util import leaves, tree_map, unflatten
@@ -65,12 +72,24 @@ def _structure(tree) -> str:
     return str(tree_map(lambda _: "*", tree))
 
 
-def save(directory: str, step: int, tree) -> str:
-    os.makedirs(directory, exist_ok=True)
+def save(directory: str, step: int, tree, plan=None, specs=None) -> str:
+    """Write `tree` as step `step`; returns the checkpoint's path.  Under
+    `plan` every rank calls it with its blocks (see the module
+    docstring) and returns when the checkpoint is in place."""
+    from repro_torch.sharding.partition import state_spec_leaves
+    flat = leaves(tree)
+    spec = [None] * len(flat) if plan is None else state_spec_leaves(specs)
+    writes = plan is None or plan.mesh.rank == 0
     final = os.path.join(directory, f"step_{step:08d}")
-    tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
-    manifest = {"step": step, "treedef": _structure(tree), "leaves": []}
-    for i, leaf in enumerate(leaves(tree)):
+    if writes:
+        os.makedirs(directory, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
+        manifest = {"step": step, "treedef": _structure(tree), "leaves": []}
+    for i, (leaf, sp) in enumerate(zip(flat, spec, strict=True)):
+        if plan is not None:
+            leaf = plan.relayout(leaf, sp, ())
+        if not writes:
+            continue
         stored, dtype_name = _to_numpy(leaf)
         np.save(os.path.join(tmp, f"arr_{i}.npy"), stored)
         manifest["leaves"].append({
@@ -78,11 +97,14 @@ def save(directory: str, step: int, tree) -> str:
             "dtype": dtype_name,
             "sha1": hashlib.sha1(stored.tobytes()).hexdigest(),
         })
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic publish
+    if writes:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+    if plan is not None and plan.mesh.size > 1:
+        dist.barrier()      # the others return once it is published
     return final
 
 
@@ -133,11 +155,14 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int, like_tree, device="cuda"):
+def restore(directory: str, step: int, like_tree, device="cuda", plan=None,
+            specs=None):
     """Load the step-k checkpoint into the structure of `like_tree` (e.g.
     `train.step.abstract_state`'s meta tensors), each leaf a tensor on
-    `device` in its stored dtype; raises IOError on a checksum
-    mismatch."""
+    `device` in its stored dtype; under `plan` this rank's block of each
+    by `specs` (a tree of specs like `like_tree`).  Raises IOError on a
+    checksum mismatch."""
+    from repro_torch.sharding.partition import state_spec_leaves
     dev = resolve_device(device)
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -146,8 +171,10 @@ def restore(directory: str, step: int, like_tree, device="cuda"):
     if n != len(manifest["leaves"]):
         raise ValueError(f"tree structure changed: {n} leaves, the "
                          f"checkpoint has {len(manifest['leaves'])}")
+    spec = [None] * n if plan is None else state_spec_leaves(specs)
     out = []
-    for i, want in enumerate(manifest["leaves"]):
+    for i, (want, sp) in enumerate(zip(manifest["leaves"], spec,
+                                       strict=True)):
         arr = np.load(os.path.join(path, f"arr_{i}.npy"))
         if hashlib.sha1(arr.tobytes()).hexdigest() != want["sha1"]:
             raise IOError(f"checksum mismatch for leaf {i} at step {step}")
@@ -156,5 +183,7 @@ def restore(directory: str, step: int, like_tree, device="cuda"):
             t = torch.from_numpy(arr.view(raw)).view(logical)
         else:
             t = torch.from_numpy(arr)
-        out.append(t.to(dev))
+        if plan is not None:
+            t = plan.local_shard(t, sp)
+        out.append(t.to(dev, copy=plan is not None))
     return unflatten(like_tree, out)

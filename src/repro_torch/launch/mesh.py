@@ -14,13 +14,26 @@ every rank), and the bodies reach them only through `axis_index`,
 
 Backends: NCCL with one card a rank on a machine of two or more cards;
 gloo on the CPU, and gloo for ranks that share one card, where the
-collectives stage their CUDA tensors through host copies (the kernels
-still run on the card).  `card_world` picks the backend from the card
+collectives stage their CUDA tensors through pinned host copies (the
+kernels still run on the card; a gathered block is copied back to the
+card before the blocks are joined, a reduce-scattered sum only as this
+rank's block).  `card_world` picks the backend from the card
 count; nothing picks it by catching a failure, and a collective that
 fails raises.
 
 With no process group, a mesh's axes must all have size 1, and every
 collective is the identity: the single-card paths are unchanged.
+
+The collectives are differentiable: on a tensor that requires grad
+(under grad mode) each runs as a `torch.autograd.Function` whose
+backward is its transpose on the same group, so a loss summed over the
+ranks' terms gets each rank's gradient terms from one backward a rank:
+`all_gather`'s backward is `reduce_scatter` along the same dim,
+`reduce_scatter`'s is `all_gather`, `all_reduce` (sum)'s is
+`all_reduce` (sum).  Gloo's host staging runs inside the forward and the
+backward alike.  `all_reduce(op="max")` has no such transpose and takes
+only tensors that need no grad (raises otherwise).  On a tensor that
+needs no grad a collective is the plain call, as before.
 
 `spawn` starts a job for tests, `chip_smoke.py` and examples: one spawned
 process a rank, rendezvous through a file in a temporary directory (no TCP
@@ -148,46 +161,70 @@ class Mesh:
         self._groups[names] = mine
         return mine
 
-    def _staged(self, x: torch.Tensor):
-        """(the tensor the collective takes, a function putting a result
-        back on x's device)."""
+    def _staged(self, x: torch.Tensor, own: bool = False):
+        """(the tensor the collective takes: x, or a copy of it where
+        `own` or where gloo stages a CUDA tensor through the host, a
+        function allocating a receive buffer like it, a function putting
+        a result back on x's device).  The host copies are pinned, so
+        that both copies run at the link's rate."""
         if self.backend == "nccl" and x.device.type != "cuda":
             raise ValueError(f"an NCCL mesh takes CUDA tensors, not a "
                              f"tensor on {x.device}")
         if self.backend == "gloo" and x.device.type == "cuda":
-            return x.detach().cpu(), lambda y: y.to(x.device)
-        return x.detach(), lambda y: y
+            def pinned(t):
+                return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf = pinned(x)
+            buf.copy_(x.detach())
+            return buf, pinned, lambda y: y.to(x.device)
+        buf = x.detach()
+        return (buf.clone() if own else buf), torch.empty_like, lambda y: y
 
     def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
         """The sum (or max) of x over the ranks along `axes`, on every one
-        of them; x is not changed."""
+        of them; x is not changed.  Differentiable (the sum only)."""
         names = self._check(axes)
         if op not in _OPS:
             raise ValueError(f"op {op!r}: expected one of {sorted(_OPS)}")
+        if _tracked(x):
+            if op != "sum":
+                raise ValueError(
+                    f"all_reduce(op={op!r}) has no gradient: give it a "
+                    f"detached tensor")
+            if self.axis_size(names) > 1:
+                return _AllReduce.apply(x, self, names)
+        return self._all_reduce(x, names, op)
+
+    def _all_reduce(self, x, names, op="sum"):
         if self.axis_size(names) == 1:
             return x.clone()
         group, _ = self._group(names)
-        buf, back = self._staged(x)
-        buf = buf.clone().contiguous()
+        buf, _, back = self._staged(x, own=True)
+        buf = buf.contiguous()
         dist.all_reduce(buf, op=_OPS[op], group=group)
         return back(buf)
 
     def all_gather(self, x: torch.Tensor, axes, dim: int = 0
                    ) -> torch.Tensor:
         """The ranks' x along `axes` concatenated along `dim`, in their
-        order along `axes` (the block of index i at the i-th place)."""
+        order along `axes` (the block of index i at the i-th place).
+        Differentiable."""
         names = self._check(axes)
         if self.axis_size(names) == 1:
             return x.clone()
+        if _tracked(x):
+            return _AllGather.apply(x, self, names, dim)
+        return self._all_gather(x, names, dim)
+
+    def _all_gather(self, x, names, dim):
         group, members = self._group(names)
-        buf, back = self._staged(x)
+        buf, empty, back = self._staged(x)
         buf = buf.contiguous()
-        parts = [torch.empty_like(buf) for _ in members]
+        parts = [empty(buf) for _ in members]
         dist.all_gather(parts, buf, group=group)
         # all_gather fills by group rank, i.e. by ascending global rank
         by_rank = dict(zip(sorted(members), parts))
-        return back(torch.cat([by_rank[r] for r in members], dim=dim))
+        return torch.cat([back(by_rank[r]) for r in members], dim=dim)
 
     def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0
                        ) -> torch.Tensor:
@@ -196,7 +233,7 @@ class Mesh:
         equal blocks) on the rank of index i, as `all_gather` puts them
         back.  NCCL runs the native collective; gloo has none for every
         dtype and device, so there it is `all_reduce` followed by this
-        rank's slice."""
+        rank's slice.  Differentiable."""
         names = self._check(axes)
         n = self.axis_size(names)
         if x.shape[dim] % n:
@@ -204,13 +241,20 @@ class Mesh:
                              f"over {names} ({n} ranks)")
         if n == 1:
             return x.clone()
-        size = x.shape[dim] // n
+        if _tracked(x):
+            return _ReduceScatter.apply(x, self, names, dim)
+        return self._reduce_scatter(x, names, dim)
+
+    def _reduce_scatter(self, x, names, dim):
+        size = x.shape[dim] // self.axis_size(names)
         i = self.axis_index(names)
-        if self.backend != "nccl":
-            return self.all_reduce(x, names).narrow(dim, i * size,
-                                                    size).contiguous()
         group, members = self._group(names)
-        buf, back = self._staged(x)
+        if self.backend != "nccl":
+            buf, _, back = self._staged(x, own=True)
+            buf = buf.contiguous()
+            dist.all_reduce(buf, group=group)
+            return back(buf.narrow(dim, i * size, size)).contiguous()
+        buf, _, back = self._staged(x)
         # the group's ranks take the blocks in ascending global rank
         order = sorted(members)
         parts = [t.contiguous() for t in buf.split(size, dim=dim)]
@@ -218,6 +262,50 @@ class Mesh:
         out = torch.empty_like(ins[0])
         dist.reduce_scatter(out, ins, group=group)
         return back(out)
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    """Does autograd record an op on x?"""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+# Each collective's backward is its transpose on the same group, issued
+# through the public method (a spy on the mesh's methods counts it; a
+# gradient that itself requires grad goes through the Function again).
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, names):
+        ctx.mesh, ctx.names = mesh, names
+        return mesh._all_reduce(x, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.names), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, names, dim):
+        ctx.mesh, ctx.names, ctx.dim = mesh, names, dim
+        return mesh._all_gather(x, names, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.reduce_scatter(g, ctx.names, ctx.dim), None, None,
+                None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, names, dim):
+        ctx.mesh, ctx.names, ctx.dim = mesh, names, dim
+        return mesh._reduce_scatter(x, names, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_gather(g, ctx.names, ctx.dim), None, None,
+                None)
 
 
 def make_host_mesh(data: int = 2, model: int = 4) -> Mesh:

@@ -84,8 +84,12 @@ cache; `init_cache(..., shd=plan)` allocates only the rank's block of
 every leaf by `plan.cache_specs` (the recurrent states' channels and
 heads over `model`), and prefill returns each rank's blocks in that
 decode layout.  Returned logits are the rank's block by
-`act_spec("logits")`.  Training under a plan raises (`loss_fn`, the
-train-mode forward).
+`act_spec("logits")`.  The train-mode forward runs the same per-rank
+program under `cfg.remat` (a layer's FSDP gathers inside its checkpoint)
+and `loss_fn` counts each token's term on one rank on the vocab-sharded
+logits: the collectives are differentiable (`launch.mesh`), so one
+backward a rank gives its terms of every gradient
+(`sharding.partition`'s invariant).
 """
 from __future__ import annotations
 
@@ -99,6 +103,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import flat_axes
 from repro_torch.models import kvcache, layers, moe, rglru, rwkv6
 from repro_torch.sharding.partition import (ShardingPlan, map_with_path,
                                            zip_map)
@@ -654,14 +659,23 @@ def _remat(cfg) -> dict | None:
     raise ValueError(f"remat {cfg.remat!r}: expected full, dots or none")
 
 
-def _train_layer(types, p_list, x, ctx):
-    """One layer of a segment in train mode (the JAX package's scan
-    body): x and each block's aux."""
-    auxes = []
+def _layer_blocks(types, p_list, x, caches, ctx, specs=None, comp=None):
+    """One layer of a segment (the JAX package's scan body): x, each
+    block's new cache and aux.  Under a plan each block's FSDP blocks are
+    gathered over the data axes just before it runs (`specs` the layer's
+    specs, `comp` their compute specs) and dropped after it; under
+    remat's checkpoint the backward's recompute gathers them again."""
+    ncs, auxes = [], []
     for j, bt in enumerate(types):
-        x, _, aux = apply_block(bt, p_list[j], x, None, ctx)
+        p, ps = p_list[j], None
+        if specs is not None:
+            p = zip_map(ctx.shd.gather_data, p, specs[j])
+            ps = comp[j]
+        x, nc, aux = apply_block(bt, p, x, caches[j], ctx, ps)
+        del p
+        ncs.append(nc)
         auxes.append(aux)
-    return x, auxes
+    return x, ncs, auxes
 
 
 def run_segments(params, x, caches, ctx):
@@ -677,6 +691,7 @@ def run_segments(params, x, caches, ctx):
     for si, (types, n) in enumerate(segments(cfg)):
         seg_params = _unstack(params["segments"][si], n)
         seg_cache = caches[si] if caches is not None else None
+        seg_specs = comp = None
         if plan is not None:   # a layer's specs: the stacked dim dropped
             seg_specs = map_with_path(lambda _, spec: spec[1:],
                                       plan.model_specs()["segments"][si])
@@ -684,25 +699,14 @@ def run_segments(params, x, caches, ctx):
                                  seg_specs)
         per_layer, per_aux = [], []
         for i in range(n):
+            cs = [None if seg_cache is None else _layer(seg_cache[j], i)
+                  for j in range(len(types))]
+            args = (types, seg_params[i], x, cs, ctx, seg_specs, comp)
             if remat is not None:
-                x, auxes = checkpoint(_train_layer, types, seg_params[i], x,
-                                      ctx, use_reentrant=False, **remat)
-                per_aux.append(auxes)
-                continue
-            ncs, auxes = [], []
-            for j, bt in enumerate(types):
-                c = _layer(seg_cache[j], i) if seg_cache is not None \
-                    else None
-                p, ps = seg_params[i][j], None
-                if plan is not None:
-                    # FSDP: the layer's weights whole over the data axes
-                    # for this block only
-                    p = zip_map(plan.gather_data, p, seg_specs[j])
-                    ps = comp[j]
-                x, nc, aux = apply_block(bt, p, x, c, ctx, ps)
-                del p
-                ncs.append(nc)
-                auxes.append(aux)
+                x, ncs, auxes = checkpoint(_layer_blocks, *args,
+                                           use_reentrant=False, **remat)
+            else:
+                x, ncs, auxes = _layer_blocks(*args)
             per_layer.append(ncs)
             per_aux.append(auxes)
         if ctx.mode == "prefill":
@@ -786,10 +790,6 @@ def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
     aux, ctx); under a plan (`shd`, a whole batch on every rank) this
     rank's blocks."""
     plan = check_plan(shd)
-    if plan is not None and mode == "train":
-        raise NotImplementedError(
-            "the train-mode forward under a ShardingPlan: training under "
-            "a plan is not ported; serve with mode='prefill'")
     batch, bt = _shard_batch(cfg, _on_device(params, batch), plan)
     t = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
     ctx = Ctx(cfg=cfg, mode=mode, positions=_positions_for(cfg, batch, t),
@@ -800,35 +800,78 @@ def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
     return x, caches, aux, ctx
 
 
+def _xent(cfg, params, ctx, xc, tc, wc):
+    """The weighted sum of a chunk's token terms, logsumexp(logits) less
+    the gold logit.  Under a plan xc is this rank's rows (T and D whole)
+    and the logits its block by `act_spec("logits")`: where that splits
+    the vocabulary, the row max is a detached all_reduce (max), the sum
+    of exponentials an all_reduce (sum), and the gold logit a masked pick
+    on the rank that holds it, summed likewise."""
+    logits = _logits(cfg, params, xc, ctx).float()
+    cols = None if ctx.shd is None else ctx.spec("logits", cfg.vocab)[2]
+    if cols is None or ctx.shd._size(cols) == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return ((logz - gold) * wc).sum()
+    mesh, v = ctx.mesh, logits.shape[-1]
+    mx = mesh.all_reduce(logits.detach().amax(dim=-1), cols, "max")
+    logz = mx + torch.log(mesh.all_reduce(
+        torch.exp(logits - mx[..., None]).sum(dim=-1), cols))
+    ids = tc - ctx.shd.block(cfg.vocab, cols).start
+    ok = (ids >= 0) & (ids < v)
+    gold = torch.gather(logits, -1, ids.clamp(0, v - 1)[..., None])[..., 0]
+    gold = mesh.all_reduce(torch.where(ok, gold, 0.0), cols)
+    return ((logz - gold) * wc).sum()
+
+
+def _loss_blocks(x, targets, weights, ctx):
+    """Under a plan: (x, this rank's "hidden" block, with its sequence
+    gathered: its rows, T and D whole; its rows of the targets; its rows
+    of the weights times 0/1, so that each token's term counts on one
+    rank alone: on the rank whose block of the sequence (by "hidden")
+    holds it, and of the other axes that share the term, on index 0)."""
+    plan = ctx.shd
+    hid = ctx.spec("hidden", ctx.cfg.d_model)
+    x = _rows(x, ctx)
+    targets = plan.relayout(targets, (), hid[:1])
+    weights = plan.relayout(weights, (), hid[:1])
+    split = set(flat_axes(hid[0])) | set(flat_axes(hid[1]))
+    rest = [a for a in plan.replicated_axes(()) if a not in split]
+    own = torch.zeros_like(weights[0])
+    own[plan.block(own.shape[0], hid[1])] = float(
+        all(plan.mesh.axis_index(a) == 0 for a in rest))
+    return x, targets, weights * own
+
+
 def loss_fn(cfg, params, batch, shd=None, use_kernel=None):
     """Next-token cross entropy (mean over the B*(T-1) predicted tokens);
     returns (loss, aux).  The targets are the inputs shifted by padding
     (T stays divisible by the chunk), the last position weighted 0.  When
-    `cfg.loss_chunk` divides T, the vocab loss runs chunk by chunk, each
-    under `checkpoint`, so that no (B, T, V) f32 logits are kept for the
-    backward.  A MoE layer's `lb_loss` in aux would add 0.01 times its
-    mean, as in the JAX package; neither package's MoE returns one (aux
-    holds `expert_load` only).  Training under a plan is not ported: a
-    `shd` raises."""
-    if check_plan(shd) is not None:
-        raise NotImplementedError(
-            "loss_fn under a ShardingPlan: the sharded paths carry no "
-            "gradient across ranks; train with shd=None")
-    x, _, aux, ctx = forward(cfg, params, batch, use_kernel=use_kernel)
+    `cfg.loss_chunk` divides T (the global T under a plan), the vocab
+    loss runs chunk by chunk, each under `checkpoint`, so that no (B, T,
+    V) f32 logits are kept for the backward.  A MoE layer's `lb_loss` in
+    aux would add 0.01 times its mean, as in the JAX package; neither
+    package's MoE returns one (aux holds `expert_load` only).
+
+    Under a plan (`shd`; the whole batch on every rank, its blocks of the
+    weights) each rank sums the terms of its tokens (`_loss_blocks`: its
+    rows, and of the sequence the block it holds in the residual stream)
+    on the vocab-sharded logits (`_xent`), so the ranks' local losses sum
+    to the global one; the loss returned has the global mean as its
+    value on every rank (a detached all_reduce over every axis) and this
+    rank's term's gradient."""
+    plan = check_plan(shd)
+    x, _, aux, ctx = forward(cfg, params, batch, plan, use_kernel=use_kernel)
     batch = _on_device(params, batch)
     tgt = batch["tokens"] if cfg.embed_inputs else batch["labels"]
     targets = F.pad(tgt[:, 1:].long(), (0, 1))
     weights = torch.ones(targets.shape, dtype=torch.float32,
                          device=x.device)
     weights[:, -1] = 0.0
-
-    def xent(xc, tc, wc):
-        logits = _logits(cfg, params, xc, ctx).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tc[..., None])[..., 0]
-        return ((logz - gold) * wc).sum()
-
     b, t = targets.shape
+    if plan is not None:
+        x, targets, weights = _loss_blocks(x, targets, weights, ctx)
+    xent = functools.partial(_xent, cfg, params, ctx)
     chunk = cfg.loss_chunk
     if chunk and t % chunk == 0:
         total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -839,6 +882,9 @@ def loss_fn(cfg, params, batch, shd=None, use_kernel=None):
     else:
         total = xent(x, targets, weights)
     loss = total / (b * (t - 1))
+    if plan is not None:
+        whole = plan.mesh.all_reduce(loss.detach(), plan.mesh.axis_names)
+        loss = loss + (whole - loss).detach()
     lb = [a.get("lb_loss") for seg in aux for a in seg
           if isinstance(a, dict) and a.get("lb_loss") is not None]
     if lb:

@@ -15,6 +15,18 @@ the JAX train step donates the state to its jitted call
 temporaries are freed before the next leaf's are made, so the update
 needs a few times the largest leaf beside the state (granite-3-2b's
 stacked MLP leaf is 40 x 2,048 x 8,192 elements, 2.7 GB in f32).
+
+Under a `ShardingPlan` (one process a rank) the state is a rank's
+blocks: the params by the plan's specs, m, v and master by its ZeRO-1
+specs (`train.step.state_shardings`), and so are the gradients, each
+already summed over the ranks (`ShardingPlan.grad_block`).  Each leaf's
+update runs on its ZeRO-1 block (the params' block sliced to it where
+there is no master), and the new parameter block is all-gathered over
+the data axes back into the parameter's spec.  `global_norm` counts each
+element once: a leaf's sum of squares on the ranks of index 0 along the
+axes it is replicated over, then summed over the whole mesh.  The
+factored second moment takes its row and column means over the whole
+leaf (sums over the axes that split the averaged dimension).
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.launch.mesh import flat_axes
 from repro_torch.tree_util import (keystr, leaves, leaves_with_paths,
                                    tree_map, unflatten)
 
@@ -85,7 +98,13 @@ def _v_init(cfg: AdamWConfig, p: torch.Tensor):
                        device=p.device)
 
 
-def init_state(cfg: AdamWConfig, params) -> TrainState:
+def init_state(cfg: AdamWConfig, params, plan=None, specs=None
+               ) -> TrainState:
+    """The initial state of `params`.  Under `plan` `params` are this
+    rank's blocks by `specs` (the state's `TrainState` of specs) and so is
+    the state: m, v and master their ZeRO-1 blocks."""
+    if plan is not None:
+        return _init_blocks(cfg, params, plan, specs)
     sd = _DTYPES[cfg.state_dtype]
     flat = leaves(params)
     needs_master = cfg.master_fp32 and any(
@@ -102,6 +121,30 @@ def init_state(cfg: AdamWConfig, params) -> TrainState:
     )
 
 
+def _init_blocks(cfg, params, plan, specs) -> TrainState:
+    """`init_state` on this rank's blocks: the whole state's shapes on the
+    meta device, each of m and v allocated as its block, master the f32
+    copy of the params' ZeRO-1 blocks."""
+    from repro_torch.sharding.partition import state_spec_leaves, zip_map
+    flat = leaves(params)
+    ps, zs = state_spec_leaves(specs.params), state_spec_leaves(specs.m)
+    whole = init_state(cfg, unflatten(params, [
+        torch.empty(plan.global_shape(p.shape, s), dtype=p.dtype,
+                    device="meta") for p, s in zip(flat, ps, strict=True)]))
+    dev = flat[0].device
+
+    def zeros(leaf, spec):
+        return torch.zeros(plan.local_shape(leaf.shape, spec),
+                           dtype=leaf.dtype, device=dev)
+
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int32, device=dev), params=params,
+        m=zip_map(zeros, whole.m, specs.m), v=zip_map(zeros, whole.v, specs.v),
+        master=None if whole.master is None else unflatten(params, [
+            plan.relayout(p.detach(), a, b).to(torch.float32, copy=True)
+            for p, a, b in zip(flat, ps, zs, strict=True)]))
+
+
 def _decay_mask(params):
     """A tree of bools like `params`: does the leaf take weight decay?"""
     return unflatten(params, [
@@ -109,9 +152,19 @@ def _decay_mask(params):
         for path, leaf in leaves_with_paths(params)])
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in leaves(tree)))
+def global_norm(tree, plan=None, specs=None) -> torch.Tensor:
+    """The L2 norm over every leaf; under `plan` of the whole leaves of
+    which `tree` holds this rank's blocks by `specs` (a tree of specs
+    like it)."""
+    if plan is None:
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                              for leaf in leaves(tree)))
+    from repro_torch.sharding.partition import state_spec_leaves
+    total = sum(torch.sum(torch.square(leaf.float())) * float(all(
+        plan.mesh.axis_index(a) == 0 for a in plan.replicated_axes(spec)))
+        for leaf, spec in zip(leaves(tree), state_spec_leaves(specs),
+                              strict=True))
+    return torch.sqrt(plan.mesh.all_reduce(total, plan.mesh.axis_names))
 
 
 def _at(tree, path: tuple):
@@ -120,22 +173,65 @@ def _at(tree, path: tuple):
     return tree
 
 
-def _update(cfg, g, m, v, p_ref, decay, scale, lr, b1c, b2c):
+class _Whole:
+    """The factored moment's means over a dimension of the whole leaf.
+    On one card (`plan` None) the leaf's own; under a plan the leaf is a
+    rank's block under spec `zs`, its v's `r` and `c` under `zr` and
+    `zc`, and a mean sums over the axes that split its dimension."""
+
+    def __init__(self, plan=None, zs=(), zr=(), zc=(), shape=()):
+        self.plan, self.zs, self.zr, self.zc = plan, zs, zr, zc
+        self.n = shape      # the leaf's global shape
+
+    def _sum(self, x, axes):
+        return self.plan.mesh.all_reduce(x, axes) if flat_axes(axes) else x
+
+    def row_mean(self, g2):
+        """mean(-1), laid out as `r`."""
+        if self.plan is None:
+            return g2.mean(dim=-1)
+        return self._sum(g2.sum(dim=-1), self.zs[-1]) / self.n[-1]
+
+    def col_mean(self, g2):
+        """mean(-2), laid out as `c`."""
+        if self.plan is None:
+            return g2.mean(dim=-2)
+        s = self.plan.relayout(g2.sum(dim=-2), self.zs[:-2] + self.zs[-1:],
+                               self.zc, partial=flat_axes(self.zs[-2]) or None)
+        return s / self.n[-2]
+
+    def denom(self, rhat):
+        """rhat.mean(-1, keepdim=True) over r's whole last dimension."""
+        if self.plan is None:
+            return rhat.mean(dim=-1, keepdim=True)
+        return (self._sum(rhat.sum(dim=-1), self.zr[-1]) / self.n[-2])[
+            ..., None]
+
+    def col_as_leaf(self, chat):
+        """`c` laid out as the leaf's columns."""
+        if self.plan is None:
+            return chat
+        return self.plan.relayout(chat, self.zc, self.zs[:-2] + self.zs[-1:])
+
+
+def _update(cfg, g, m, v, p_ref, decay, scale, lr, b1c, b2c,
+            whole=_Whole()):
     """One leaf's step, in place on m, v and (when it is f32) p_ref, in
     the JAX package's order of operations; returns the new f32 value of
-    the parameter."""
+    the parameter.  `whole` (a `_Whole`) takes the factored moment's
+    means over the whole leaf."""
     g32 = g.to(torch.float32, copy=True).mul_(scale)
     m32 = m.float()                      # m itself when it is f32
     m32.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
     if isinstance(v, dict):              # factored second moment
         g2 = (g32 * g32).add_(1e-30)
-        r = (v["r"] * cfg.b2).add_(g2.mean(dim=-1) * (1 - cfg.b2))
-        c = (v["c"] * cfg.b2).add_(g2.mean(dim=-2) * (1 - cfg.b2))
+        r = (v["r"] * cfg.b2).add_(whole.row_mean(g2) * (1 - cfg.b2))
+        c = (v["c"] * cfg.b2).add_(whole.col_mean(g2) * (1 - cfg.b2))
         del g2
         rhat, chat = r / b2c, c / b2c
-        denom = rhat.mean(dim=-1, keepdim=True)
-        vhat = (rhat[..., None] * chat[..., None, :]).div_(
-            torch.clamp(denom[..., None], min=1e-30))
+        denom = whole.denom(rhat)
+        vhat = (rhat[..., None] * whole.col_as_leaf(chat)[..., None, :]
+                ).div_(torch.clamp(denom[..., None], min=1e-30))
         v["r"].copy_(r)
         v["c"].copy_(c)
     else:
@@ -159,14 +255,17 @@ def _update(cfg, g, m, v, p_ref, decay, scale, lr, b1c, b2c):
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, state: TrainState, grads) -> tuple[
-        TrainState, dict]:
+def apply_updates(cfg: AdamWConfig, state: TrainState, grads, plan=None,
+                  specs=None) -> tuple[TrainState, dict]:
     """One AdamW step from `grads` (a tree like the params), in place on
     the state's tensors (see the module docstring).  Returns the new
-    state and {"grad_norm", "lr"} as tensors."""
+    state and {"grad_norm", "lr"} as tensors.  Under `plan` the state and
+    the gradients are this rank's blocks by `specs` (the state's
+    `TrainState` of specs; the gradients laid out as m)."""
     step = state.step + 1
     flat_g = leaves(grads)
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g) if plan is None else global_norm(
+        grads, plan, specs.m)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = _lr_at(cfg, step)
@@ -178,8 +277,19 @@ def apply_updates(cfg: AdamWConfig, state: TrainState, grads) -> tuple[
     params = leaves(state.params)
     for (path, p_ref), g, p, decay in zip(leaves_with_paths(ref), flat_g,
                                           params, mask, strict=True):
+        whole = _Whole()
+        if plan is not None:
+            ps, zs = _at(specs.params, path), _at(specs.m, path)
+            zv = _at(specs.v, path)
+            if isinstance(zv, dict):
+                whole = _Whole(plan, zs, zv["r"], zv["c"],
+                               plan.global_shape(p.shape, ps))
+            if state.master is None:     # the params' block, sliced
+                p_ref = plan.relayout(p_ref, ps, zs)
         p32 = _update(cfg, g, _at(state.m, path), _at(state.v, path), p_ref,
-                      decay, scale, lr, b1c, b2c)
+                      decay, scale, lr, b1c, b2c, whole)
+        if plan is not None:             # back to the params' spec
+            p32 = plan.relayout(p32.to(p.dtype), zs, ps)
         if p32 is not p:
             p.copy_(p32)
     return state._replace(step=step), {"grad_norm": gnorm, "lr": lr}

@@ -43,12 +43,36 @@ blocks, and the plan places them itself:
   and RWKV's `s` heads over `model`, each rank scanning its channels or
   heads.
 
-Every block type serves under a plan.  Training under a plan and
-ZeRO-1 optimizer states are not ported: the train-mode forward and
-`loss_fn` raise under a plan.
+Every block type serves and trains under a plan.  The optimizer's m, v
+and master are cut by the plan with FSDP forced on (`zero1`, the
+reference's ZeRO-1 specs): over the data axes even where the weights are
+not (`shard_state` cuts a whole train state into a rank's blocks).
+
+Training: each rank runs a function of its own blocks, and its gradients
+are its terms of the reference's when three things hold.
+
+1. The loss is counted once: the ranks' local losses sum to the global
+   loss, each predicted token's term on exactly one rank (a term that
+   every rank of an axis computes alike counts on the rank of index 0,
+   or on the rank whose block of the sequence holds its token).
+2. Each collective's backward is its transpose on the same group
+   (`launch.mesh`): all_gather <-> reduce_scatter, all_reduce (sum) <->
+   all_reduce (sum); a detached all_reduce (max) carries none.  Local
+   slices and masked picks need nothing: autograd has them.  So the
+   gradient a rank holds of a tensor that it shares with other ranks
+   (replicated over their axes) is its term of the sum over them.
+3. Each leaf's gradient is summed over the mesh axes its spec leaves
+   replicated (`grad_block`): after the backward, leaf by leaf in tree
+   order on every rank, never from hooks (every rank issues the same
+   collectives in one order; remat's recompute re-issues a layer's
+   gathers inside the backward).  An FSDP leaf has its data sum from
+   `gather_data`'s all_gather adjoint; a leaf that ZeRO-1 alone cuts
+   over the data axes takes its data sum as a reduce_scatter into its
+   block; the other axes are all-reduced.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from dataclasses import dataclass, field
@@ -59,7 +83,7 @@ import torch
 from repro_torch.launch.mesh import flat_axes
 
 __all__ = ["FSDP_THRESHOLD", "ShardingPlan", "map_with_path",
-           "spec_leaves", "zip_map"]
+           "spec_leaves", "state_spec_leaves", "zip_map"]
 
 # the reference's: FSDP for every arch above 1e9 parameters
 FSDP_THRESHOLD = 1e9
@@ -106,6 +130,17 @@ def spec_leaves(specs) -> list:
 
     walk(specs, ())
     return out
+
+
+def state_spec_leaves(specs) -> list:
+    """The specs of a tree of specs in jax's flatten order (`leaves`' of
+    the tree they describe): a NamedTuple of spec trees, such as a
+    `TrainState` of specs, field by field, None no leaf."""
+    if specs is None:
+        return []
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return [s for f in specs for s in state_spec_leaves(f)]
+    return [s for _, s in spec_leaves(specs)]
 
 
 @dataclass
@@ -424,6 +459,46 @@ class ShardingPlan:
         """`spec` without its data axes: the layout of `gather_data`'s
         result."""
         return tuple(None if self._is_data(e) else e for e in spec)
+
+    # -- training: ZeRO-1 and the gradients' sums -------------------------
+    def zero1(self) -> "ShardingPlan":
+        """This plan with FSDP forced on: its `param_specs` are the specs
+        of the optimizer's m, v and master (ZeRO-1), as the reference's
+        train step builds them."""
+        plan = dataclasses.replace(self)
+        plan.fsdp = True
+        return plan
+
+    def replicated_axes(self, spec) -> tuple:
+        """The mesh axes of more than one rank that split no dimension of
+        `spec`: those a leaf under it is replicated over."""
+        used = {a for e in spec for a in flat_axes(e)}
+        return tuple(a for a in self.mesh.axis_names
+                     if a not in used and self.mesh.shape[a] > 1)
+
+    def grad_block(self, g: torch.Tensor, spec, zspec) -> torch.Tensor:
+        """A leaf's gradient: `g`, this rank's term of it on its block
+        under `spec`, summed over the axes `spec` leaves replicated, as
+        this rank's block under `zspec` (its ZeRO-1 spec: `spec` with at
+        most one dimension more split over the data axes).  The sum over
+        the axes `zspec` adds is reduce-scattered into that dimension,
+        the rest all-reduced."""
+        dim = next((d for d, (a, b) in enumerate(zip(spec, zspec))
+                    if flat_axes(a) != flat_axes(b)), None)
+        scatter = () if dim is None else flat_axes(zspec[dim])
+        if scatter:
+            g = self.relayout(g, spec, zspec, partial=scatter)
+        rest = tuple(a for a in self.replicated_axes(spec)
+                     if a not in scatter)
+        return self.mesh.all_reduce(g, rest) if rest else g
+
+    def shard_state(self, state, specs):
+        """A whole train state (a NamedTuple of trees: step, params, m, v,
+        master) cut to this rank's blocks by `specs` (the same NamedTuple
+        of spec trees, `train.step.state_shardings`; views)."""
+        return type(state)(*(None if t is None else
+                             zip_map(self.local_shard, t, s)
+                             for t, s in zip(state, specs)))
 
     # -- inputs ----------------------------------------------------------
     def input_shardings(self, specs: dict) -> dict:

@@ -16,7 +16,9 @@ shape by the reference's `param_specs`, `cache_specs` and `act_spec`;
 `rglru_scan` runs on lru_width/2 channels, `rwkv6_scan` on H/2 heads and
 the windowed flash on H/2 heads (under `seq` on all heads, at q_offset
 T/2 on the second model rank); `model_batcher` under a plan serves as
-the one-rank batcher does.  Training under a plan still raises."""
+the one-rank batcher does.  Training under a (1, 1) plan gives the
+loss and gradients of training without one (the 4-rank training cases
+are `test_torch_gspmd_train.py`'s)."""
 import jax
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models import convert
 from repro_torch.models import transformer as tt
 from repro_torch.sharding import ShardingPlan
+from repro_torch.tree_util import leaves, tree_map
 
 jax.config.update("jax_default_matmul_precision", "float32")
 
@@ -133,18 +136,27 @@ def test_model_batcher_under_a_plan_serves_as_one_rank(run, arch):
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
-def test_training_under_a_plan_raises(arch):
-    """The train-mode forward and `loss_fn` under a plan raise (training
-    under a plan is not ported); serving on one rank's mesh runs."""
+def test_training_under_a_one_rank_plan_matches_no_plan(arch):
+    """The train-mode loss and every gradient leaf under a (1, 1) plan
+    equal those without a plan (the same sums, but the sharded blocks'
+    order of a few of them); serving on one rank's mesh runs."""
     tcb.load_all()
     cfg = tcb.get_config(arch).smoke()
     plan = ShardingPlan(Mesh({"data": 1, "model": 1}), cfg, mode="train")
     params = convert.params_from_numpy(chk.weights(cfg), "cpu")
-    batch = {"tokens": np.zeros((2, 8), np.int32)}
-    with pytest.raises(NotImplementedError, match="train"):
-        tt.forward(cfg, params, batch, shd=plan, mode="train")
-    with pytest.raises(NotImplementedError, match="loss_fn"):
-        tt.loss_fn(cfg, params, batch, shd=plan)
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32)}
+    out = []
+    for shd in (None, plan):
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        loss, _ = tt.loss_fn(cfg, params, batch, shd=shd)
+        out.append((loss.detach(), torch.autograd.grad(loss, flat)))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-6, atol=0)
+    for got, want in zip(out[1][1], out[0][1], strict=True):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    params = tree_map(lambda p: p.detach(), params)
     logits, _, _ = tt.prefill(cfg, params, batch, shd=ShardingPlan(
         plan.mesh, cfg, mode="prefill"))
     want, _, _ = tt.prefill(cfg, params, batch)

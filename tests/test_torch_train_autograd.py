@@ -304,14 +304,12 @@ def test_port_packages_expose_the_reference_submodules():
                                   "launch.train"])
 def test_training_modules_keep_the_reference_names(name):
     """Every public function and class of the reference's training module
-    exists in the port's, but the sharding plumbing of `train.step` (one
-    card holds the whole state)."""
+    exists in the port's."""
     ref = ast.parse((ROOT / "src" / "repro" / (
         name.replace(".", "/") + ".py")).read_text())
     names = {n.name for n in ref.body
              if isinstance(n, (ast.FunctionDef, ast.ClassDef))
              and not n.name.startswith("_")}
-    names -= {"state_shardings", "metric_shardings", "jit_train_step"}
     port = importlib.import_module(f"repro_torch.{name}")
     assert names and all(hasattr(port, n) for n in names), \
         sorted(n for n in names if not hasattr(port, n))
