@@ -172,8 +172,8 @@ one record with the card's provenance, and `perf_gate` over it (the
 record against itself passes, a copy with one entry 2x slower fails).
 
 The mesh slice (`repro_torch.launch.mesh`, `repro_torch.sharding` and
-the sharded paths), `mesh_serve` one job of the card's ranks and the
-other four one job together (`mesh_tail_rank`)
+the sharded paths, `runtime.elastic`), `mesh_serve` one job of the
+card's ranks and the other five one job together (`mesh_tail_rank`)
 (`mesh.card_world()`: 2 ranks sharing one card over gloo, collectives
 staged through host copies; NCCL with one rank a card, up to 4, on a
 machine of several), its kernel launches counted in the ranks from 0:
@@ -213,7 +213,20 @@ loss within TRAIN_LOSS_REL, every gradient leaf of the first step (a
 rank's ZeRO-1 block) within DEEP_BF16_REL, resident params, m, v and
 master within 1 % of the specs' count, the same kernel launches and
 plain backwards as one rank's, no decode kernel; it prints the seconds
-it adds beside the room made for it;
+it adds beside the room made for it; `mesh_elastic_dp` trains that
+granite-4l under the "dp" strategy (ZeRO-3: every leaf cut over every
+axis, the batch's rows over every axis) on (data 1, model R), in 1 and
+2 microbatches, against one rank's run in as many (the same gates),
+holds the card's count of a step (`analysis.cost`) equal to the
+counting stand-in's on meta (`launch.mesh.CountingMesh`), then trains
+granite cut to 2 layers on (data R, model 1) with a checkpoint at step
+2, loses the ranks past `runtime.elastic.shrink_mesh`'s smaller mesh,
+restores onto it through `reshard_state` (bit for bit) and trains on
+to the uninterrupted run's losses, the lost ranks making no
+`torch.distributed` call; it prints the checkpoint's write and read
+seconds and the seconds it adds beside the room made for it
+(`train_restart`'s checkpoint I/O on threads, and the serving
+profiles read once);
 `mesh_fleet` runs fig7's grid
 and the P=4 fleet sweep with the fleet axis sharded over the ranks, the
 rows' sha1s the one-rank phases'; `mesh_compress` holds
@@ -229,7 +242,8 @@ path, the window rows' with the sched, model_serve_study and perf_sweep
 phases' added and split in `launches_by_slice`; times, bound, error; the
 four training kernels' `train_launches` and `train_backward_recomputes`
 on granite's training run; the substrate and mesh slices' launches in
-`launches_by_slice`) and `{"ok": true, "device": ...}`.
+`launches_by_slice`, flash's under `dp` in `mesh_dp_launches`) and
+`{"ok": true, "device": ...}`.
 
 Without CUDA, or without the port's sources beside it, the script exits
 non-zero before it prints any result.
@@ -245,8 +259,10 @@ import math
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -2322,28 +2338,29 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def _kernel_records(prof) -> dict:
+def _kernel_records(rows: list) -> dict:
     """Records the profiler kept of each of the port's kernels, by kind
-    (the decode kernel's split and merge launches each count)."""
+    (the decode kernel's split and merge launches each count), from a
+    profile's `cuda_rows`."""
     out = {}
-    for evt in cuda_rows(prof):
+    for evt in rows:
         kind = _kernel_kind(evt.key)
         if kind not in ("gemm", "other"):
             out[kind] = out.get(kind, 0) + evt.count
     return out
 
 
-def _kernel_ms(prof) -> dict:
-    """Device milliseconds of the kernels a torch.profiler run saw, summed
-    by kind (the attention kernels, the two grouped-FFN entry points, the
-    two recurrent scans, GEMMs, everything else).  Each kernel of the
-    port names its kind in its symbol (`flash_kernel_wgmma`,
-    `decode_kernel_merge`, ...), so it is matched before the library's
-    GEMMs."""
+def _kernel_ms(rows: list) -> dict:
+    """Device milliseconds of the kernels a torch.profiler run saw (its
+    `cuda_rows`), summed by kind (the attention kernels, the two
+    grouped-FFN entry points, the two recurrent scans, GEMMs, everything
+    else).  Each kernel of the port names its kind in its symbol
+    (`flash_kernel_wgmma`, `decode_kernel_merge`, ...), so it is matched
+    before the library's GEMMs."""
     kinds = dict.fromkeys(("flash_attention", "decode_attention", "moe_gmm",
                            "moe_gmm_skip", "rglru_scan", "rwkv6_scan",
                            "gemm", "other"), 0.0)
-    for evt in cuda_rows(prof):
+    for evt in rows:
         kinds[_kernel_kind(evt.key)] += _device_us(evt) / 1e3
     return kinds
 
@@ -2356,6 +2373,12 @@ def phase_serve_profile(dev) -> None:
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     profile_serving(dev, cfg, params, "serve_profile")
     del params
+
+
+# each serving profile's reading of its parsed events (`cuda_rows`), in
+# seconds: its device times by kind and its kernels' records once took a
+# reading each; the second is room made, printed by `mesh_elastic_dp`
+PROFILE_ROOM: dict = {}
 
 
 def profile_serving(dev, cfg, params, prefix: str) -> None:
@@ -2428,8 +2451,18 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
     for name in ("admission", "decode"):
         wall_ms = plain[name][0]
         _, prof, launched = traced[name]
-        kinds = {k: v / steps[name] for k, v in _kernel_ms(prof).items()}
-        records = _kernel_records(prof)
+        # the profile's events parsed (once, on first use), then its rows
+        # read once for both sums: the second reading each took (an
+        # aggregation of the parsed events, as long as this one) is room
+        # made, in PROFILE_ROOM
+        t0 = time.perf_counter()
+        prof.profiler.function_events
+        t1 = time.perf_counter()
+        rows = cuda_rows(prof)
+        read_s = time.perf_counter() - t1
+        PROFILE_ROOM[f"{prefix}_{name}"] = read_s
+        kinds = {k: v / steps[name] for k, v in _kernel_ms(rows).items()}
+        records = _kernel_records(rows)
         busy = sum(kinds.values())
         # a profiler that sees no device time measures nothing: say so
         # rather than report an idle share of 1
@@ -2442,7 +2475,9 @@ def profile_serving(dev, cfg, params, prefix: str) -> None:
              idle_share=1.0 - busy / wall_ms if busy > 0 else None,
              device_ms_by_kind=kinds if busy > 0 else None,
              kernel_records={k: [records.get(k, 0), n]
-                             for k, n in launched.items()})
+                             for k, n in launched.items()},
+             profile_parse_s=round(t1 - t0, 3),
+             profile_read_s=round(read_s, 3))
 
 
 def _sdpa(q, k, v, **kw):
@@ -2882,7 +2917,7 @@ def phase_slot_engine(dev, cfg, params) -> None:
             check(launched == SLOT_STEPS * moe_layers,
                   f"slot engine launched moe_gmm_skip {launched} times")
             t0 = time.perf_counter()
-            skip_ms = _kernel_ms(prof)["moe_gmm_skip"]
+            skip_ms = _kernel_ms(cuda_rows(prof))["moe_gmm_skip"]
             read_s = time.perf_counter() - t0
             emit("slot_engine", arch=cfg.name, slots=slots, hit_bias=bias,
                  shards=SLOT_SHARDS, tenants=SLOT_TENANTS, batch=8,
@@ -3908,17 +3943,19 @@ def phase_train_granite(dev, card: str) -> dict:
     return counts, {k: report[k] for k in ("step_s", "peak_memory_bytes")}
 
 
-def phase_train_restart(dev) -> None:
+def phase_train_restart(dev) -> float:
     """train_restart: the supervised restart at full width cut to 2
     layers, each run from the same weights drawn on the card: 8 steps with
     a checkpoint every 4, clean and with a failure injected before step 6;
     one restart, and the final loss equal to the clean run's within the
-    reference test's rel 1e-4."""
-    import shutil
-    import tempfile
+    reference test's rel 1e-4.  Returns the seconds its checkpoints' I/O
+    threads took off the runs' path (`ckpt.IO_SECONDS`: their work less
+    the runs' waits for it)."""
+    from repro_torch.checkpoint import ckpt
     from repro_torch.configs import base as cb
     from repro_torch.launch import train
     cb.load_all()
+    io0 = dict(ckpt.IO_SECONDS)
     cb.register(dataclasses.replace(cb.get_config(GRANITE), name=GRANITE_2L,
                                     num_layers=2))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -3926,14 +3963,17 @@ def phase_train_restart(dev) -> None:
         runs = {}
         for what, fail_at in (("clean", None), ("fail", RESTART_FAIL_AT)):
             ckpt_dir = os.path.join(tmp, what)
+            t0 = time.perf_counter()
             runs[what] = train.run(
                 GRANITE_2L, device=dev, ckpt_dir=ckpt_dir, fail_at=fail_at,
                 init_params=_drawn_params(cb.get_config(GRANITE_2L), dev),
                 **RESTART)
+            runs[what]["run_s"] = time.perf_counter() - t0
             shutil.rmtree(ckpt_dir)
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    io = {k: ckpt.IO_SECONDS[k] - io0[k] for k in io0}
     clean, failed = runs["clean"], runs["fail"]
     check(failed["restarts"] == 1 and clean["restarts"] == 0,
           f"restarts {clean['restarts']} / {failed['restarts']}")
@@ -3954,21 +3994,26 @@ def phase_train_restart(dev) -> None:
          bit_equal=failed["losses"][-1] == clean["losses"][-1],
          replayed_steps=replayed,
          bit_equal_replayed=failed["losses"][-replayed:] ==
-         clean["losses"][-replayed:])
+         clean["losses"][-replayed:],
+         checkpoint_io_s={k: round(v, 3) for k, v in io.items()},
+         io_threads=ckpt.IO_THREADS,
+         seconds=round(sum(r["run_s"] for r in runs.values()), 3))
+    return io["work"] - io["wait"]
 
 
-def phase_train(dev, card: str) -> tuple[dict, dict]:
+def phase_train(dev, card: str) -> tuple[dict, dict, float]:
     """The training slice: the Functions' gradients, then granite's
     training (its main path: the counts and step summary it returns) and
-    the supervised restart."""
+    the supervised restart (the room its checkpoint threads made, which
+    it also returns)."""
     t0 = time.perf_counter()
     phase_train_grads(dev)
     torch.cuda.empty_cache()
     counts, train = phase_train_granite(dev, card)
     torch.cuda.empty_cache()
-    phase_train_restart(dev)
+    room = phase_train_restart(dev)
     emit("train_path", seconds=round(time.perf_counter() - t0, 3))
-    return counts, train
+    return counts, train, room
 
 
 # ---------------------------------------------------------------------------
@@ -5025,18 +5070,17 @@ def _grad_gaps(want: list):
     return compare
 
 
-def gspmd_train_rank(shared: list) -> dict:
+def gspmd_train_rank(weights: dict) -> dict:
     """One rank of `mesh_gspmd_train`: each of GSPMD_TRAIN_RUNS (and
     GSPMD_TRAIN_2D on four or more ranks) through `launch.train.run(mesh=
     ...)`, its kernels and collectives counted from 0, the first step's
     gradient blocks held to one rank's; its blocks' resident bytes beside
-    the specs' count.  The weights are popped from `shared` and dropped
-    before it returns."""
+    the specs' count.  `weights`: {name: (config, whole weights, one
+    rank's first gradients)}, the parent's (CUDA IPC views)."""
     from repro_torch.configs import base as cb
     from repro_torch.launch import mesh
     from repro_torch.sharding import ShardingPlan
     from repro_torch.tree_util import leaves
-    weights = shared.pop()
     dev = _rank_device()
     world = mesh.world()[0]
     runs = GSPMD_TRAIN_RUNS + ((GSPMD_TRAIN_2D,) if world >= 4 else ())
@@ -5063,7 +5107,7 @@ def gspmd_train_rank(shared: list) -> dict:
         del report
         gc.collect()
         torch.cuda.empty_cache()
-    del weights, params, grads
+    del params, grads
     gc.collect()
     return out
 
@@ -5158,17 +5202,450 @@ def phase_mesh_gspmd_train(card: str, job: tuple, one: dict,
     return totals
 
 
-def mesh_tail_rank(shared: list, rounds: int, train: list) -> dict:
-    """One rank of the job the last four mesh phases share (one start of
+# mesh_elastic_dp: granite-4l trained under the "dp" strategy (ZeRO-3:
+# every leaf cut over every axis, gathered a layer at a time; the batch's
+# rows over every axis) in microbatches of 1 and 2, on (data 1, model R)
+# (on four or more ranks (data 2, model R/2)); then granite cut to 2
+# layers trained on (data R, model 1) (on four, (2, R/2)) with a
+# checkpoint at step ELASTIC_SAVED, shrunk by `shrink_mesh(*shrink)` and
+# restored onto the survivors, which train on to ELASTIC_STEPS
+DP_MICROBATCHES = (1, 2)
+ELASTIC_2L = "granite-3-2b-elastic-2l"
+ELASTIC_SAVED, ELASTIC_STEPS = 2, 4
+ELASTIC_SHAPE = (4, 1024)          # batch, seq
+# the counted totals the stand-in must equal exactly
+DP_COUNTED = ("flops", "flops_total", "bytes", "ops", "kernels",
+              "collective_bytes", "collectives")
+# every torch.distributed call that makes a group or moves data
+DIST_CALLS = ("all_reduce", "all_gather", "reduce_scatter", "barrier",
+              "broadcast", "new_group")
+
+
+def elastic_dp_one_rank(dev, shared: dict) -> dict:
+    """The parent's half of `mesh_elastic_dp`: one rank's
+    `launch.train.run` of granite-4l in 2 microbatches on the weights
+    `gspmd_train_one_rank` drew (its one-microbatch run is that
+    function's); its record, and its first gradients into `shared`."""
+    from repro_torch.tree_util import tree_map
+    t0 = time.perf_counter()
+    cfg, params, _ = shared[GRANITE_4L]
+    with _spied_updates({}) as rec:
+        report = _train_run(GRANITE_4L, dev, tree_map(torch.clone, params),
+                            microbatches=2)
+    shared["dp_mb2_grads"] = rec["grads"]
+    out = dict(losses=report["losses"], grad_norm=rec["grad_norm"],
+               counts=report["counts"], step_s=report["step_s"],
+               seconds=round(time.perf_counter() - t0, 3))
+    del report
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _dist_calls():
+    """Count every `torch.distributed` call of DIST_CALLS made inside."""
+    import torch.distributed as dist
+    calls, real = dict.fromkeys(DIST_CALLS, 0), {}
+    for name in DIST_CALLS:
+        real[name] = getattr(dist, name)
+
+        def spy(*a, _real=real[name], _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        setattr(dist, name, spy)
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def _launcher_opt(steps: int):
+    """`launch.train.run`'s AdamW config for a run of `steps` steps."""
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(lr=1e-3, warmup=max(steps // 10, 1),
+                             total_steps=steps)
+
+
+def _dp_step_count(cfg, m, opt, specs_in: dict) -> dict:
+    """The counting stand-in's count of this rank's "dp" step: the same
+    plan over a `CountingMesh` of `m`'s shape, on meta blocks."""
+    from repro_torch.analysis import cost
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.sharding import ShardingPlan
+    from repro_torch.train import step as train_step
+    plan = ShardingPlan(CountingMesh(m.shape, m.rank), cfg, mode="train",
+                        strategy_override="dp")
+    fn, shapes, specs = train_step.jit_train_step(cfg, opt, plan, specs_in)
+    state = plan.shard_state(shapes, specs)
+    batch = {k: torch.zeros(shape, dtype=dtype, device="meta")
+             for k, (shape, dtype) in specs_in.items()}
+    with cost.CostCounter(device="meta") as counter:
+        fn(state, batch)
+    return counter.result()
+
+
+def _dp_run(cfg, params, want_grads, m, microbatches: int,
+            count: bool) -> dict:
+    """GSPMD_TRAIN_STEPS steps of `cfg` under the "dp" plan on mesh `m`,
+    as `launch.train.run` would run them (its AdamW config, data and
+    blocks of the weights; the reference's launcher takes no strategy),
+    its kernels and collectives counted from 0, the first step's gradient
+    blocks held to one rank's (`want_grads`); with `count`, the last step
+    also counted on the card (`analysis.cost`) beside the stand-in's
+    count of it."""
+    from repro_torch.analysis import cost
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import ShardingPlan
+    from repro_torch.train import step as train_step
+    from repro_torch.tree_util import leaves, tree_map
+    dev = _rank_device()
+    _, _, batch, seq = GSPMD_TRAIN_SHAPES[GRANITE_4L]
+    steps = GSPMD_TRAIN_STEPS
+    opt = _launcher_opt(steps)
+    plan = ShardingPlan(m, cfg, mode="train", strategy_override="dp")
+    specs_in = {"tokens": ((batch, seq), torch.int32)}
+    fn, _, specs = train_step.jit_train_step(cfg, opt, plan, specs_in,
+                                             microbatches)
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=seq,
+                               global_batch=batch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = adamw.init_state(opt, tree_map(
+        lambda p: p.to(dev, copy=True), plan.shard_params(params)), plan,
+        specs)
+    _reset_train_counts()
+    counts = _count_collectives(m)
+    losses, times, counted = [], [], None
+    with _spied_updates({}, _grad_gaps(leaves(want_grads))) as rec:
+        for i in range(steps):
+            b = train.batch_for(cfg, dcfg, i, specs_in, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if count and i == steps - 1:
+                with cost.CostCounter(device=dev.type) as counter:
+                    state, metrics = fn(state, b)
+                counted = counter.result()
+            else:
+                state, metrics = fn(state, b)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    out = _rank_report(
+        t0, losses=losses, grad_norm=rec["grad_norm"],
+        grad_rel=rec["grad_rel"], counts=_train_counts(),
+        off_path={"decode_attention": da.decode_attention.launches,
+                  "moe_gmm_skip": gmm.moe_gmm_skip.launches},
+        collectives={k: v / steps for k, v in counts.items()},
+        step_s=times, resident_bytes={
+            f: sum(t.numel() * t.element_size()
+                   for t in leaves(getattr(state, f)))
+            for f in ("params", "m", "v", "master")},
+        spec_bytes=_state_spec_bytes(cfg, plan), microbatches=microbatches,
+        coords=dict(m.coords), mesh=dict(m.shape))
+    if count:
+        t1 = time.perf_counter()
+        out["count"] = {"card": {k: counted[k] for k in DP_COUNTED},
+                        "stand_in": {k: v for k, v in _dp_step_count(
+                            cfg, m, opt, specs_in).items()
+                            if k in DP_COUNTED},
+                        "stand_in_s": round(time.perf_counter() - t1, 3)}
+    del state
+    return out
+
+
+def _elastic_run(ckpt_dir: str, world: int) -> dict:
+    """granite cut to 2 layers (bf16, full width) trained ELASTIC_STEPS
+    steps by `launch.train.run(mesh=...)` on (data 2, model R/2) with
+    checkpoints every ELASTIC_SAVED steps (the state of step ELASTIC_SAVED
+    gathered whole as it is saved, both saves timed); then the ranks
+    past `shrink_mesh(*shrink)`'s mesh are lost: its members restore step
+    ELASTIC_SAVED through `reshard_state` (timed), hold their blocks to
+    the gathered state bit for bit, and train steps ELASTIC_SAVED + 1 to
+    ELASTIC_STEPS on the same batches; every `torch.distributed` call
+    after the shrink counted."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import base as cb
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh, train
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding.partition import state_spec_leaves
+    from repro_torch.train import step as train_step
+    from repro_torch.tree_util import leaves
+    dev = _rank_device()
+    cb.load_all()
+    cfg = cb.register(dataclasses.replace(
+        cb.get_config(GRANITE), name=ELASTIC_2L, num_layers=2,
+        dtype="bfloat16"))
+    model = world // 2
+    m = mesh.Mesh({"data": 2, "model": model})
+    shrink = (world - 1, model)
+    saves, gathered = [], []
+    real_save = ckpt.save
+
+    def spied_save(directory, step, tree, plan=None, specs=None):
+        if step == ELASTIC_SAVED:
+            gathered[:] = [plan.relayout(x, sp, ()).clone() for x, sp in zip(
+                leaves(tree), state_spec_leaves(specs))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = real_save(directory, step, tree, plan, specs)
+        saves.append(round(time.perf_counter() - t0, 3))
+        return path
+
+    batch, seq = ELASTIC_SHAPE
+    ckpt.save = spied_save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = train.run(ELASTIC_2L, smoke=False, steps=ELASTIC_STEPS,
+                           batch=batch, seq=seq, ckpt_dir=ckpt_dir,
+                           ckpt_every=ELASTIC_SAVED, mesh=m, device=dev,
+                           log_every=0, init_params=_drawn_params(cfg, dev))
+        run_s = time.perf_counter() - t0
+    finally:
+        ckpt.save = real_save
+    out = dict(mesh=dict(m.shape), losses=report["losses"],
+               run_s=round(run_s, 3), save_s=saves,
+               resident_bytes=report["resident_bytes"],
+               peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    del report
+    torch.cuda.empty_cache()
+    opt = _launcher_opt(ELASTIC_STEPS)
+    specs_in = {"tokens": ((batch, seq), torch.int32)}
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=seq,
+                               global_batch=batch)
+    with _dist_calls() as calls:
+        new = elastic.shrink_mesh(*shrink)
+        out.update(shrunk=dict(new.shape), member=new.member,
+                   coords=new.coords)
+        if new.member:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, plan = elastic.reshard_state(ckpt_dir, ELASTIC_SAVED, cfg,
+                                                opt, new, dev)
+            torch.cuda.synchronize()
+            out["restore_s"] = round(time.perf_counter() - t0, 3)
+            specs = train_step.state_shardings(
+                cfg, plan, train_step.abstract_state(cfg, opt))
+            out["restored_equal"] = all(
+                got.dtype == want.dtype and bool(torch.equal(
+                    got, plan.local_shard(want, sp)))
+                for got, want, sp in zip(leaves(state), gathered,
+                                         state_spec_leaves(specs),
+                                         strict=True))
+            out["restored_step"] = int(state.step)
+            fn, _, _ = train_step.jit_train_step(cfg, opt, plan, specs_in)
+            after = []
+            for i in range(ELASTIC_SAVED, ELASTIC_STEPS):
+                state, metrics = fn(state, train.batch_for(
+                    cfg, dcfg, i, specs_in, dev))
+                after.append(float(metrics["loss"]))
+            out["after"] = after
+            del state
+    out["dist_calls"] = dict(calls)
+    gathered.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_dp_rank(weights: dict, ckpt_dir: str) -> dict:
+    """One rank of `mesh_elastic_dp`: granite-4l (the `mesh_gspmd_train`
+    weights) under the "dp" plan in each of DP_MICROBATCHES (`_dp_run`;
+    the first run also counted against the stand-in), then the elastic
+    run (`_elastic_run`)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import mesh
+    cfg, params, grads = weights[GRANITE_4L]
+    cb.register(cfg)
+    world = mesh.world()[0]
+    model = world if world < 4 else world // 2
+    m = mesh.Mesh({"data": world // model, "model": model})
+    out = {}
+    for mb in DP_MICROBATCHES:
+        want = grads if mb == 1 else weights["dp_mb2_grads"]
+        out[f"dp_mb{mb}"] = _dp_run(cfg, params, want, m, mb, mb == 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, grads, want
+    out["elastic"] = _elastic_run(ckpt_dir, world)
+    return out
+
+
+def phase_mesh_elastic_dp(card: str, job: tuple, one: dict, one_mb2: dict,
+                          room: dict) -> dict:
+    """mesh_elastic_dp: granite-3-2b at full width cut to 4 layers (bf16,
+    batch 4 x 1,024, 3 AdamW steps) under the "dp" strategy
+    (`strategy_override="dp"`: every leaf cut over every axis and
+    gathered a layer at a time, the batch's rows over every axis) on
+    (data 1, model R) (on four or more ranks (2, R/2)), in 1 and in 2
+    microbatches, each against one rank's `launch.train.run` in as many
+    microbatches on the same weights and batches: the first loss within
+    TRAIN_LOSS_REL, every gradient leaf of the first step (a rank's
+    block) within DEEP_BF16_REL, resident params, m, v and master within
+    GSPMD_RESIDENT_REL of the specs' count, the training kernels'
+    launches and plain backwards equal to one rank's; the last step of
+    the first run counted on the card (`analysis.cost`) equal to the
+    counting stand-in's count of it (`CountingMesh`, meta): FLOPs,
+    bytes, ops, kernel charges and collective bytes exactly.  Then
+    elastic re-meshing: granite cut to 2 layers (bf16) trained by
+    `launch.train.run(mesh=...)` on (data 2, model R/2), a checkpoint at
+    step 2 and 4; the ranks past `shrink_mesh(R - 1, model=R/2)` are
+    lost, the members restore step 2 through `reshard_state`, their
+    blocks equal to the state gathered at the save bit for bit, and
+    train steps 3-4 within TRAIN_LOSS_REL of the uninterrupted run's; the
+    lost ranks make no `torch.distributed` call after the shrink.
+    Prints the checkpoint's write and read seconds, the seconds the
+    phase adds and the room made for it (`room`).  Returns the flash
+    launches and plain backwards of its "dp" runs."""
+    from repro_torch.configs import base as cb
+    ranks, world, backend, secs = job
+    ref = {1: one[GRANITE_4L], 2: one_mb2}
+    runs = {}
+    totals = {"launches": 0, "backward_recomputes": 0}
+    for mb in DP_MICROBATCHES:
+        name, rows = f"dp_mb{mb}", []
+        for i, rank in enumerate(ranks):
+            r = rank[name]
+            what = f"mesh_elastic_dp {name} rank {i}"
+            first = abs(r["losses"][0] - ref[mb]["losses"][0]) / abs(
+                ref[mb]["losses"][0])
+            check(len(r["losses"]) == GSPMD_TRAIN_STEPS
+                  and all(np.isfinite(r["losses"])),
+                  f"{what}: losses {r['losses']}")
+            check(first <= TRAIN_LOSS_REL,
+                  f"{what}: first loss {r['losses'][0]} against one rank's "
+                  f"{ref[mb]['losses'][0]}")
+            worst = max(r["grad_rel"])
+            check(worst <= DEEP_BF16_REL,
+                  f"{what}: a gradient leaf {worst} (relative L2) from one "
+                  f"rank's > {DEEP_BF16_REL}")
+            for f, want in r["spec_bytes"].items():
+                got = r["resident_bytes"][f]
+                check(got == want == 0 or abs(got / want - 1)
+                      <= GSPMD_RESIDENT_REL,
+                      f"{what} holds {got} bytes of {f}, the specs give "
+                      f"{want}")
+            check(r["counts"] == ref[mb]["counts"],
+                  f"{what}: kernels {r['counts']}, one rank's "
+                  f"{ref[mb]['counts']}")
+            check(r["off_path"] == dict.fromkeys(GSPMD_TRAIN_OFF_PATH, 0),
+                  f"{what}: kernels off the path launched {r['off_path']}")
+            if "count" in r:
+                card_c, stand_in = r["count"]["card"], r["count"]["stand_in"]
+                check(card_c == stand_in,
+                      f"{what}: the card's count of a step "
+                      f"{ {k: card_c[k] for k in DP_COUNTED[:4]} } is not "
+                      f"the stand-in's "
+                      f"{ {k: stand_in[k] for k in DP_COUNTED[:4]} }")
+                check(card_c["collective_bytes"] > 0,
+                      f"{what}: no collective counted")
+            for c in totals:
+                totals[c] += r["counts"]["flash_attention"][c]
+            rows.append(dict(
+                first_loss_rel=first,
+                later_loss_rel=[abs(a - b) / abs(b) for a, b in zip(
+                    r["losses"][1:], ref[mb]["losses"][1:])],
+                grad_rel_max=worst, grad_norm=r["grad_norm"],
+                resident_gb={f: round(v / 1e9, 4)
+                             for f, v in r["resident_bytes"].items()},
+                **({"count": {k: r["count"]["card"][k] for k in (
+                    "flops_total", "bytes", "collective_bytes",
+                    "collectives")}, "stand_in_s": r["count"]["stand_in_s"]}
+                   if "count" in r else {}),
+                **{k: r[k] for k in ("collectives", "step_s", "peak_gb",
+                                     "seconds", "coords")}))
+        runs[name] = dict(
+            arch=GRANITE_4L, layers=4, reduced={"num_layers": [
+                cb.get_config(GRANITE).num_layers, 4]},
+            batch=GSPMD_TRAIN_SHAPES[GRANITE_4L][2],
+            seq=GSPMD_TRAIN_SHAPES[GRANITE_4L][3], microbatches=mb,
+            mesh=ranks[0][name]["mesh"], strategy="dp",
+            one_rank_losses=ref[mb]["losses"],
+            losses=ranks[0][name]["losses"],
+            one_rank_grad_norm=ref[mb]["grad_norm"],
+            one_rank_step_s=ref[mb]["step_s"],
+            counts=ranks[0][name]["counts"], ranks=rows)
+    el = [r["elastic"] for r in ranks]
+    uninterrupted = el[0]["losses"]
+    members = [e for e in el if e["member"]]
+    check(len(members) == el[0]["shrunk"]["data"] * el[0]["shrunk"]["model"]
+          and all(e["member"] == (i < len(members))
+                  for i, e in enumerate(el)),
+          f"mesh_elastic_dp: members {[e['member'] for e in el]} of "
+          f"{el[0]['shrunk']}")
+    for i, e in enumerate(el):
+        what = f"mesh_elastic_dp elastic rank {i}"
+        check(len(e["losses"]) == ELASTIC_STEPS
+              and all(np.isfinite(e["losses"])), f"{what}: {e['losses']}")
+        if not e["member"]:
+            check(not any(e["dist_calls"].values()),
+                  f"{what}, lost, made torch.distributed calls "
+                  f"{e['dist_calls']}")
+            continue
+        check(e["restored_equal"] and e["restored_step"] == ELASTIC_SAVED,
+              f"{what}: the restored blocks differ from the state saved at "
+              f"step {ELASTIC_SAVED} (step {e['restored_step']})")
+        for a, b in zip(e["after"], uninterrupted[ELASTIC_SAVED:],
+                        strict=True):
+            check(abs(a - b) <= TRAIN_LOSS_REL * abs(b),
+                  f"{what}: losses after the shrink {e['after']}, the "
+                  f"uninterrupted run's {uninterrupted[ELASTIC_SAVED:]}")
+    dp_s = max(r[f"dp_mb{mb}"]["seconds"] for r in ranks
+               for mb in DP_MICROBATCHES)
+    added = secs + one_mb2["seconds"]
+    emit("mesh_elastic_dp", world=world, backend=backend, seconds=secs,
+         steps=GSPMD_TRAIN_STEPS, loss_tolerance=TRAIN_LOSS_REL,
+         grad_tolerance=DEEP_BF16_REL, resident_tolerance=GSPMD_RESIDENT_REL,
+         runs=runs, dp_s=dp_s, elastic=dict(
+             arch=ELASTIC_2L, reduced={"num_layers": [
+                 cb.get_config(GRANITE).num_layers, 2]},
+             batch=ELASTIC_SHAPE[0], seq=ELASTIC_SHAPE[1],
+             mesh=el[0]["mesh"], shrunk=el[0]["shrunk"],
+             saved_at=ELASTIC_SAVED, uninterrupted_losses=uninterrupted,
+             after=members[0]["after"],
+             after_loss_rel=[abs(a - b) / abs(b) for a, b in zip(
+                 members[0]["after"], uninterrupted[ELASTIC_SAVED:])],
+             checkpoint_write_s=el[0]["save_s"],
+             checkpoint_read_s=[e["restore_s"] for e in members],
+             resident_gb={f: round(v / 1e9, 4) for f, v in
+                          el[0]["resident_bytes"].items()},
+             run_s=[e["run_s"] for e in el],
+             peak_gb=[e["peak_gb"] for e in el],
+             dist_calls=[e["dist_calls"] for e in el]),
+         one_rank_mb2_s=one_mb2["seconds"], added_s=round(added, 3),
+         room_made_s=round(sum(room.values()), 3),
+         room_made_by_s={k: round(v, 3) for k, v in room.items()},
+         nvidia_smi=card)
+    return totals
+
+
+def mesh_tail_rank(shared: list, rounds: int, train: list,
+                   ckpt_dir: str) -> dict:
+    """One rank of the job the last five mesh phases share (one start of
     the ranks for them all): `gspmd_serve_rank`, `gspmd_train_rank`,
-    `mesh_fleet_rank` and `mesh_compress_rank` in turn, and the seconds
-    they all took."""
+    `elastic_dp_rank`, `mesh_fleet_rank` and `mesh_compress_rank` in
+    turn, and the seconds they all took.  The training weights are
+    popped from `train` and dropped after `elastic_dp_rank`."""
     t0 = time.perf_counter()
     out = {"mesh_gspmd_serve": gspmd_serve_rank(shared)}
     torch.cuda.reset_peak_memory_stats()
+    weights = train.pop()
     t1 = time.perf_counter()
-    out["mesh_gspmd_train"] = gspmd_train_rank(train)
+    out["mesh_gspmd_train"] = gspmd_train_rank(weights)
     out["train_s"] = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    out["mesh_elastic_dp"] = elastic_dp_rank(weights, ckpt_dir)
+    out["elastic_dp_s"] = time.perf_counter() - t1
+    del weights
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out["mesh_fleet"] = mesh_fleet_rank()
     torch.cuda.reset_peak_memory_stats()
@@ -5177,8 +5654,8 @@ def mesh_tail_rank(shared: list, rounds: int, train: list) -> dict:
     return out
 
 
-def phase_mesh_gspmd_serve(dev, card: str, room: dict, train: list
-                           ) -> tuple[dict, dict]:
+def phase_mesh_gspmd_serve(dev, card: str, room: dict, train: list,
+                           ckpt_dir: str) -> tuple[dict, dict]:
     """granite-3-2b at full width and depth on (data 1, model R) (head-TP
     and Megatron-SP) and (data R, model 1) (FSDP, batch over data),
     qwen1.5-4b at full width cut to 8 layers on (data 1, model R)
@@ -5236,7 +5713,7 @@ def phase_mesh_gspmd_serve(dev, card: str, room: dict, train: list
     torch.cuda.empty_cache()
     tail, world, backend, secs = _spawn(mesh_tail_rank,
                                         ([(weights, inputs)],
-                                         COMPRESS_ROUNDS, train))
+                                         COMPRESS_ROUNDS, train, ckpt_dir))
     ranks = [r["mesh_gspmd_serve"] for r in tail]
     start_s = secs - max(r["bodies_s"] for r in tail)
     room = dict(room, rank_starts=2 * start_s)
@@ -5321,9 +5798,10 @@ def phase_mesh_gspmd_serve(dev, card: str, room: dict, train: list
     jobs = {k: ([r[k] for r in tail], world, backend,
                 round(max(r[k]["seconds"] for r in tail), 3))
             for k in ("mesh_fleet", "mesh_compress")}
-    jobs["mesh_gspmd_train"] = ([r["mesh_gspmd_train"] for r in tail], world,
-                                backend, round(max(r["train_s"]
-                                                   for r in tail), 3))
+    for k, t in (("mesh_gspmd_train", "train_s"),
+                 ("mesh_elastic_dp", "elastic_dp_s")):
+        jobs[k] = ([r[k] for r in tail], world, backend,
+                   round(max(r[t] for r in tail), 3))
     return launches, jobs
 
 
@@ -5576,7 +6054,7 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
 
     # the training slice: the four kernels on its path, their launches and
     # their plain backwards on granite's training run
-    train_counts, train = phase_train(dev, card)
+    train_counts, train, restart_room = phase_train(dev, card)
     for row in kernels:
         if row["name"] in train_counts:
             row["train_launches"] = train_counts[row["name"]]["launches"]
@@ -5603,9 +6081,18 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
     # then the fleet and compress bodies, in one job; the room made for
     # the training phase: the anchors' draws taken off the card's path
     train_room = {f"anchor_draw_{k}": v for k, v in ANCHOR_ROOM.items()}
+    elastic_room = {"train_restart_checkpoint_threads": restart_room,
+                    **{f"profile_read_{k}": v
+                       for k, v in PROFILE_ROOM.items()}}
     train_one, train_shared = gspmd_train_one_rank(dev)
+    one_mb2 = elastic_dp_one_rank(dev, train_shared)
     torch.cuda.empty_cache()
-    gspmd, jobs = phase_mesh_gspmd_serve(dev, card, room, [train_shared])
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        gspmd, jobs = phase_mesh_gspmd_serve(dev, card, room, [train_shared],
+                                             ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     del train_shared
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
@@ -5615,6 +6102,9 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
                                      train_one, train_room)
     for name, n in trained.items():
         mesh_launches[name] += n["launches"]
+    dp = phase_mesh_elastic_dp(card, jobs["mesh_elastic_dp"], train_one,
+                               one_mb2, elastic_room)
+    mesh_launches["flash_attention"] += dp["launches"]
     mesh_launches.update(phase_mesh_fleet(card, jobs["mesh_fleet"]))
     phase_mesh_compress(card, jobs["mesh_compress"])
     for row in kernels:
@@ -5627,6 +6117,9 @@ def run(opts, card: str, cases: list, plain: list, mix, pool) -> None:
             row["mesh_train_launches"] = trained[row["name"]]["launches"]
             row["mesh_train_backward_recomputes"] = \
                 trained[row["name"]]["backward_recomputes"]
+        if row["name"] == "flash_attention":
+            row["mesh_dp_launches"] = dp["launches"]
+            row["mesh_dp_backward_recomputes"] = dp["backward_recomputes"]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

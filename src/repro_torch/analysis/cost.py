@@ -43,11 +43,24 @@ A kernel whose work depends on values (decode attention's `kv_len`,
 whole cache, every expert): a meta tensor has no values, and a count
 reads none on any device.
 
+Collectives (`collective`): each collective of a `launch.mesh` mesh over
+more than one rank is charged by the mesh as it runs, by the HLO
+walker's rule, its result's bytes on this rank: an all-reduce its
+tensor, an all-gather the gathered result, a reduce-scatter the
+scattered block.  `collective_bytes` sums them and `collectives` holds
+each kind's count and bytes (the walker's `collectives`, under its
+names); the ops that move the data (gloo's host staging, the join of
+the gathered blocks) count nothing.  A real rank and the meta stand-in
+`launch.mesh.CountingMesh` charge them by the same code, so a rank's
+count of a step on the card equals the stand-in's count of it.  The
+walker also adds a collective's bytes to `bytes`; here `bytes` is the
+aten ops' and the kernels' traffic alone, and the roofline takes the
+collective bytes as its own term.
+
 `roofline_terms` is the reference's, with the H100's constants and a
 compute term summed over the dtype classes.  What `hlo` also does has no
 counterpart here: the HLO text parser, `op_histogram` (the port's op mix
-is `workloads.opcounts`), `xla_cost_analysis` and the collectives (one
-card has none).
+is `workloads.opcounts`) and `xla_cost_analysis`.
 """
 from __future__ import annotations
 
@@ -56,7 +69,8 @@ import contextlib
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["CostCounter", "kernel", "uncounted", "counting", "replay",
+__all__ = ["CostCounter", "kernel", "collective", "uncounted", "counting",
+           "replay",
            "combine", "dtype_class", "work", "roofline_terms",
            "CLASSES", "H100_PEAK", "H100_HBM_BW", "H100_LINK_BW",
            "H100_HBM_BYTES"]
@@ -164,6 +178,17 @@ def kernel(name: str, count):
         yield
 
 
+def collective(kind: str, out: torch.Tensor) -> None:
+    """Charge one collective of `kind` ("all-reduce", "all-gather",
+    "reduce-scatter") whose result on this rank is `out` to every active
+    counter that counts `out`'s device: its bytes."""
+    nbytes = out.numel() * out.element_size()
+    for c in _ACTIVE:
+        if not c._muted and (c.device is None
+                             or out.device.type == c.device):
+            c._charge_collective(kind, nbytes)
+
+
 # recorded counts of calls on the meta device: {(counter's settings,
 # key): what the call added to the counter}
 _REPLAYS: dict = {}
@@ -224,6 +249,8 @@ class CostCounter(TorchDispatchMode):
         self.bytes_written = 0
         self.kernel_bytes = 0
         self.ops = 0
+        self.collective_bytes = 0
+        self.collectives: dict[str, dict] = {}
         self.kernels: dict[str, dict] = {}
         self.by_op: dict[str, dict] = {}
         self._muted = 0
@@ -255,6 +282,12 @@ class CostCounter(TorchDispatchMode):
         self.kernel_bytes += w["bytes"]
         self._add(name, self.kernels, w["flops"], w["bytes"])
 
+    def _charge_collective(self, kind: str, nbytes: int) -> None:
+        self.collective_bytes += nbytes
+        row = self.collectives.setdefault(kind, {"count": 0, "bytes": 0})
+        row["count"] += 1
+        row["bytes"] += nbytes
+
     def _absorb(self, d: dict) -> None:
         """Add a `result()`-shaped difference (`replay`)."""
         for cls, n in d["flops"].items():
@@ -263,8 +296,10 @@ class CostCounter(TorchDispatchMode):
         self.bytes_written += d["bytes_written"]
         self.kernel_bytes += d["kernel_bytes"]
         self.ops += d["ops"]
+        self.collective_bytes += d["collective_bytes"]
         for table, rows in ((self.kernels, d["kernels"]),
-                            (self.by_op, d["by_op"])):
+                            (self.by_op, d["by_op"]),
+                            (self.collectives, d["collectives"])):
             for key, row in rows.items():
                 table[key] = combine(table.get(key, 0), row)
 
@@ -323,13 +358,17 @@ class CostCounter(TorchDispatchMode):
 
     def result(self) -> dict:
         """{"flops": {class: n}, "flops_total", "bytes", "bytes_read",
-        "bytes_written", "kernel_bytes", "ops", "kernels": {name:
+        "bytes_written", "kernel_bytes", "ops", "collective_bytes",
+        "collectives": {kind: {"count", "bytes"}}, "kernels": {name:
         {"calls", "flops", "bytes"}}, "by_op": {aten op: the same}}."""
         return {"flops": dict(self.flops),
                 "flops_total": sum(self.flops.values()),
                 "bytes": self.bytes, "bytes_read": self.bytes_read,
                 "bytes_written": self.bytes_written,
                 "kernel_bytes": self.kernel_bytes, "ops": self.ops,
+                "collective_bytes": self.collective_bytes,
+                "collectives": {k: dict(v)
+                                for k, v in self.collectives.items()},
                 "kernels": {k: dict(v, flops=dict(v["flops"]))
                             for k, v in self.kernels.items()},
                 "by_op": {k: dict(v, flops=dict(v["flops"]))
@@ -343,7 +382,8 @@ def roofline_terms(flops, hbm_bytes: float, coll_bytes: float = 0.0, *,
     `hlo.roofline_terms` with the H100's constants.  `flops` is a number
     or {dtype class: FLOPs}; `peak_flops` a number or {class: FLOP/s}.
     The compute term is the sum over the classes of each class's FLOPs
-    over its peak.  One card moves no collective bytes."""
+    over its peak; the collective term is a rank's collective bytes
+    (`CostCounter.result()["collective_bytes"]`) over the link's rate."""
     parts = flops if isinstance(flops, dict) else {None: flops}
     compute = sum(
         n / (peak_flops[cls] if isinstance(peak_flops, dict) else

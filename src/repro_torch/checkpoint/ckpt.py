@@ -14,7 +14,11 @@ the manifest.  So a checkpoint that either package writes restores leaf
 for leaf in the other.  A save is written to a temporary directory and
 renamed into place: a crashed save leaves no manifest, so `latest_step`
 never returns a partial checkpoint.  `restore` checks every sha1 and puts
-the leaves on a device.
+the leaves on a device.  Each leaf's file and sha1 are written, or read
+and checked, on one of `IO_THREADS` threads, up to `IO_WINDOW` leaves
+ahead of the caller (hashlib and the file calls release the GIL); the
+copies between the card and the host, and the gathers under a mesh, run
+in the caller's thread in the leaves' order.
 
 Under a mesh (`plan`, one process a rank; `specs` the tree's specs, e.g.
 `train.step.state_shardings`) the tree holds each rank's blocks: `save`
@@ -25,21 +29,31 @@ the reference's re-shard onto a mesh (`restore(..., shardings)`).
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
 import shutil
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.tree_util import leaves, tree_map, unflatten
 
-__all__ = ["save", "AsyncSaver", "latest_step", "restore"]
+__all__ = ["save", "AsyncSaver", "latest_step", "restore", "IO_THREADS"]
+
+IO_THREADS = 8     # leaves hashed and read or written at once
+IO_WINDOW = 16     # leaves held on the host at once beyond those
+# seconds the threads spent on leaves ("work") and the caller spent
+# waiting for them ("wait"), summed over every save and restore: the
+# caller's path is shorter than a serial one by about work - wait
+IO_SECONDS = {"work": 0.0, "wait": 0.0}
+_IO_LOCK = threading.Lock()
 
 # numpy has no bfloat16 / float8: stored as raw views, the logical dtype
 # in the manifest
@@ -66,6 +80,51 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _sha1(arr: np.ndarray) -> str:
+    """The sha1 of `arr.tobytes()`, hashed in place."""
+    return hashlib.sha1(np.ascontiguousarray(arr).data).hexdigest()
+
+
+def _write(path: str, stored: np.ndarray) -> str:
+    """Write one leaf's array to `path`; its sha1."""
+    np.save(path, stored)
+    return _sha1(stored)
+
+
+def _account(key: str, t0: float) -> None:
+    with _IO_LOCK:
+        IO_SECONDS[key] += time.perf_counter() - t0
+
+
+def _timed(fn, *a):
+    t0 = time.perf_counter()
+    try:
+        return fn(*a)
+    finally:
+        _account("work", t0)
+
+
+def _in_order(fn, args):
+    """`fn(*a)` for each `a` of the iterable `args` on IO_THREADS threads,
+    at most IO_WINDOW of them pending, yielded in order (`args` is drawn
+    in the caller's thread as the results are taken)."""
+    def take(future):
+        t0 = time.perf_counter()
+        try:
+            return future.result()
+        finally:
+            _account("wait", t0)
+
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        pending = collections.deque()
+        for a in args:
+            pending.append(pool.submit(_timed, fn, *a))
+            if len(pending) > IO_WINDOW:
+                yield take(pending.popleft())
+        while pending:
+            yield take(pending.popleft())
+
+
 def _structure(tree) -> str:
     """The tree's structure as text, '*' a leaf (the manifest's
     `treedef`; neither package reads it back)."""
@@ -85,26 +144,29 @@ def save(directory: str, step: int, tree, plan=None, specs=None) -> str:
         os.makedirs(directory, exist_ok=True)
         tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
         manifest = {"step": step, "treedef": _structure(tree), "leaves": []}
-    for i, (leaf, sp) in enumerate(zip(flat, spec, strict=True)):
-        if plan is not None:
-            leaf = plan.relayout(leaf, sp, ())
-        if not writes:
-            continue
-        stored, dtype_name = _to_numpy(leaf)
-        np.save(os.path.join(tmp, f"arr_{i}.npy"), stored)
-        manifest["leaves"].append({
-            "shape": list(stored.shape),
-            "dtype": dtype_name,
-            "sha1": hashlib.sha1(stored.tobytes()).hexdigest(),
-        })
+
+    def host_leaves():
+        # every rank gathers each leaf in turn; rank 0 writes it
+        for i, (leaf, sp) in enumerate(zip(flat, spec, strict=True)):
+            if plan is not None:
+                leaf = plan.relayout(leaf, sp, ())
+            if writes:
+                stored, dtype_name = _to_numpy(leaf)
+                manifest["leaves"].append({"shape": list(stored.shape),
+                                           "dtype": dtype_name})
+                yield os.path.join(tmp, f"arr_{i}.npy"), stored
+
+    digests = list(_in_order(_write, host_leaves()))
     if writes:
+        for entry, digest in zip(manifest["leaves"], digests, strict=True):
+            entry["sha1"] = digest
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic publish
-    if plan is not None and plan.mesh.size > 1:
-        dist.barrier()      # the others return once it is published
+    if plan is not None:
+        plan.mesh.barrier()   # the others return once it is published
     return final
 
 
@@ -172,18 +234,28 @@ def restore(directory: str, step: int, like_tree, device="cuda", plan=None,
         raise ValueError(f"tree structure changed: {n} leaves, the "
                          f"checkpoint has {len(manifest['leaves'])}")
     spec = [None] * n if plan is None else state_spec_leaves(specs)
-    out = []
-    for i, (want, sp) in enumerate(zip(manifest["leaves"], spec,
-                                       strict=True)):
+
+    def read(i: int) -> np.ndarray:
         arr = np.load(os.path.join(path, f"arr_{i}.npy"))
-        if hashlib.sha1(arr.tobytes()).hexdigest() != want["sha1"]:
+        if _sha1(arr) != manifest["leaves"][i]["sha1"]:
             raise IOError(f"checksum mismatch for leaf {i} at step {step}")
-        if want["dtype"] in _EXOTIC:
-            logical, _, raw = _EXOTIC[want["dtype"]]
-            t = torch.from_numpy(arr.view(raw)).view(logical)
-        else:
-            t = torch.from_numpy(arr)
-        if plan is not None:
-            t = plan.local_shard(t, sp)
-        out.append(t.to(dev, copy=plan is not None))
-    return unflatten(like_tree, out)
+        return arr
+
+    arrays = _in_order(read, ((i,) for i in range(n)))
+    return unflatten(like_tree, [
+        _to_tensor(arr, want["dtype"], sp, plan, dev)
+        for arr, want, sp in zip(arrays, manifest["leaves"], spec,
+                                 strict=True)])
+
+
+def _to_tensor(arr: np.ndarray, dtype: str, sp, plan, dev) -> torch.Tensor:
+    """A stored leaf as a tensor on `dev` in its logical dtype; under
+    `plan` this rank's block by spec `sp`."""
+    if dtype in _EXOTIC:
+        logical, _, raw = _EXOTIC[dtype]
+        t = torch.from_numpy(arr.view(raw)).view(logical)
+    else:
+        t = torch.from_numpy(arr)
+    if plan is not None:
+        t = plan.local_shard(t, sp)
+    return t.to(dev, copy=plan is not None)

@@ -27,7 +27,10 @@ tensors).  Nothing here reads a value on the host.
 `hbm_budget` is the reference's analytical per-device budget; on one
 card (`chips=1`) it takes tp=1, one card holding the model whole, and
 `fits_hbm` holds it to the H100's 80 GiB.  XLA's `memory_analysis` and
-`cost_analysis`, and the mesh, have no counterpart here.
+`cost_analysis` have no counterpart here.  The dry run counts one card;
+`build_cell(mesh=launch.mesh.CountingMesh(...))` counts one rank's step
+of a cell under its plan on a mesh's shape, collectives included, which
+`launch.perf` uses.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
         [--shape S] [--out experiments/dryrun_torch]
@@ -109,15 +112,25 @@ def repeats(cfg) -> tuple[int, int, int]:
 
 
 def build_cell(arch, shape, device="meta", seed: int = 0,
-               layers: int | None = None):
+               layers: int | None = None, mesh=None, strategy=None,
+               microbatches: int | None = None):
     """(step, meta) of one cell at its global shape on `device`: `step()`
     runs the cell's train step, prefill or decode step once.  On meta the
     state is `train.step.abstract_state` / meta params and caches; on
     another device the params are drawn from `seed` (for tests at small
     shapes).  `arch` is a name or a `ModelConfig`, `shape` a name or a
     `ShapeSpec`; `layers` cuts the model to that many layers, keeping the
-    whole model's optimizer config and microbatches."""
+    whole model's optimizer config, microbatches (unless `microbatches`
+    is given) and FSDP choice.
+
+    With `mesh` (on meta, a `launch.mesh.CountingMesh`) the step is its
+    rank's under the cell's plan (`strategy` the train plan's
+    `strategy_override`): the rank's blocks of the state, params and
+    cache, the whole batch cut inside."""
     full, spec = _config(arch), _shape(shape)
+    if mesh is not None:
+        return _build_sharded(full, spec, layers, mesh, strategy,
+                              microbatches)
     cfg = full if layers is None else dataclasses.replace(
         full, num_layers=layers)
     dev = torch.device(device)
@@ -131,7 +144,8 @@ def build_cell(arch, shape, device="meta", seed: int = 0,
         opt = opt_config_for(full)
         state = (train_step.abstract_state(cfg, opt) if dev.type == "meta"
                  else adamw.init_state(opt, params()))
-        fn = train_step.make_train_step(cfg, opt, microbatches_for(full))
+        fn = train_step.make_train_step(
+            cfg, opt, microbatches or microbatches_for(full))
 
         def step():
             return fn(state, batch)
@@ -152,6 +166,41 @@ def build_cell(arch, shape, device="meta", seed: int = 0,
     return step, _meta(full, spec)
 
 
+def _build_sharded(full, spec, layers, mesh, strategy, microbatches):
+    """`build_cell` on meta under a plan over `mesh`."""
+    from repro_torch.serve import step as serve_step
+    from repro_torch.sharding.partition import FSDP_THRESHOLD, ShardingPlan
+    cfg = full if layers is None else dataclasses.replace(
+        full, num_layers=layers)
+    fsdp = full.param_count() > FSDP_THRESHOLD
+    plan = ShardingPlan(mesh, cfg, mode=spec.kind, fsdp=fsdp,
+                        strategy_override=strategy)
+    batch = _batch(cfg, spec, torch.device("meta"))
+    if spec.kind == "train":
+        opt = opt_config_for(full)
+        fn, shapes, specs = train_step.jit_train_step(
+            cfg, opt, plan, batch, microbatches or microbatches_for(full))
+        state = plan.shard_state(shapes, specs)
+
+        def step():
+            return fn(state, batch)
+        return step, _meta(full, spec)
+    params = plan.shard_params(serve_step.abstract_params(cfg))
+    if spec.kind == "prefill":
+        fn = serve_step.make_prefill(cfg, plan)
+
+        def step():
+            return fn(params, batch)
+    else:
+        fn = serve_step.make_decode(cfg, plan)
+        cache = transformer.init_cache(cfg, spec.global_batch, spec.seq_len,
+                                       "meta", shd=plan)
+
+        def step():
+            return fn(params, cache, batch)
+    return step, _meta(full, spec)
+
+
 def _meta(cfg, spec: cb.ShapeSpec) -> dict:
     tokens = spec.global_batch * (spec.seq_len if spec.kind != "decode"
                                   else 1)
@@ -159,18 +208,20 @@ def _meta(cfg, spec: cb.ShapeSpec) -> dict:
             "tokens": tokens}
 
 
-def _count(arch, shape, device, seed: int, layers=None) -> dict:
-    step, _ = build_cell(arch, shape, device, seed, layers)
+def _count(arch, shape, device, seed: int, layers=None, **sharded) -> dict:
+    step, _ = build_cell(arch, shape, device, seed, layers, **sharded)
     with cost.CostCounter(device=torch.device(device).type) as counter:
         step()
     return counter.result()
 
 
 def trace_cell(arch, shape, device="meta", seed: int = 0,
-               extrapolate: bool = True) -> dict:
+               extrapolate: bool = True, **sharded) -> dict:
     """One cell's count under a `CostCounter` on `device`:
     the cell's meta dict (`build_cell`) with "count" (the counter's
-    `result()`), "trace_s" (seconds) and "layers_traced".
+    `result()`), "trace_s" (seconds) and "layers_traced".  `sharded`
+    (`mesh`, `strategy`, `microbatches`) go to `build_cell`: with a
+    `CountingMesh` the count is its rank's, collectives included.
 
     The layers of the repeated segment are identical, so the count is
     linear in their number (the reference's HLO walker multiplies a scan
@@ -182,10 +233,11 @@ def trace_cell(arch, shape, device="meta", seed: int = 0,
     cfg = _config(arch)
     unit, tail, n = repeats(cfg)
     if not extrapolate or n <= 2:
-        count, traced = _count(cfg, shape, device, seed), [cfg.num_layers]
+        count = _count(cfg, shape, device, seed, **sharded)
+        traced = [cfg.num_layers]
     else:
-        one = _count(cfg, shape, device, seed, unit + tail)
-        two = _count(cfg, shape, device, seed, 2 * unit + tail)
+        one = _count(cfg, shape, device, seed, unit + tail, **sharded)
+        two = _count(cfg, shape, device, seed, 2 * unit + tail, **sharded)
         count = cost.combine(one, cost.combine(two, one, -1), n - 1)
         traced = [unit + tail, 2 * unit + tail]
     return dict(_meta(cfg, _shape(shape)), count=count, layers_traced=traced,
@@ -246,7 +298,8 @@ def hbm_budget(arch, shape, chips: int, tp: int = 16) -> dict:
 def analyse(traced: dict, chips: int = 1) -> dict:
     """The cell's record from `trace_cell`'s result: the reference's keys
     where they have a meaning on one card (FLOPs and bytes per device,
-    no collectives, the roofline terms, the budget and whether it fits),
+    the collective bytes: none on one card, the roofline terms, the
+    budget and whether it fits),
     with the FLOPs by dtype class, the ops and each kernel's count."""
     c = traced["count"]
     out = {k: traced[k] for k in ("arch", "shape", "kind", "tokens")}
@@ -255,10 +308,11 @@ def analyse(traced: dict, chips: int = 1) -> dict:
         "flops_per_device": c["flops_total"],
         "flops_by_class": c["flops"],
         "bytes_per_device": c["bytes"],
-        "collective_bytes_per_device": 0,
+        "collective_bytes_per_device": c["collective_bytes"],
         "ops": c["ops"],
         "kernels": c["kernels"],
-        "roofline": cost.roofline_terms(c["flops"], c["bytes"], 0.0),
+        "roofline": cost.roofline_terms(c["flops"], c["bytes"],
+                                        c["collective_bytes"]),
     })
     budget = hbm_budget(traced["arch"], traced["shape"], chips)
     out["memory"] = {"hbm_budget": budget,

@@ -21,8 +21,26 @@ rank's block).  `card_world` picks the backend from the card
 count; nothing picks it by catching a failure, and a collective that
 fails raises.
 
-With no process group, a mesh's axes must all have size 1, and every
-collective is the identity: the single-card paths are unchanged.
+A mesh spans the first `size` ranks of the world, as the reference's
+`jax.devices()[:n]` does (`runtime.elastic.shrink_mesh`): a rank outside
+it has no coordinates (`member` False) and takes part in no collective
+(each raises there).  The groups of a mesh that spans the whole world
+are made by every rank, in one order (its whole set of ranks is
+`WORLD`); those of a smaller mesh by their members alone
+(`use_local_synchronization`), so that a rank outside it need not
+enter.  With no process group, a mesh's axes must all have size 1, and
+every collective is the identity: the single-card paths are unchanged.
+
+`CountingMesh` is a stand-in for counting: a mesh of any shape run by
+one rank's program with no process group, on meta tensors.  Its
+collectives return empty meta tensors of their results' shapes; the
+differentiable wrappers take it unchanged.  Every collective over more
+than one rank, of a real mesh or of the stand-in, is charged to the
+active `analysis.cost.CostCounter` by the same code (`_all_reduce`,
+`_all_gather`, `_reduce_scatter`): its kind and its result's bytes on
+this rank, the ops that move it counting nothing; so a real rank's
+count of a step equals the stand-in's count of that rank's step.
+`launch.perf` counts a step on the production mesh's shape so.
 
 The collectives are differentiable: on a tensor that requires grad
 (under grad mode) each runs as a `torch.autograd.Function` whose
@@ -54,10 +72,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import cost
 from repro_torch.tree_util import tree_map
 
-__all__ = ["Mesh", "make_host_mesh", "make_production_mesh", "card_world",
-           "spawn", "world", "flat_axes", "GROUP_TIMEOUT_S"]
+__all__ = ["Mesh", "CountingMesh", "make_host_mesh", "make_production_mesh",
+           "card_world", "spawn", "world", "flat_axes", "GROUP_TIMEOUT_S"]
 
 GROUP_TIMEOUT_S = 300.0      # every process group's collective timeout
 
@@ -90,30 +109,43 @@ class Mesh:
     rank's coordinate on each axis."""
 
     def __init__(self, axes: dict):
+        self._axes(axes)
+        n, rank = world()
+        if self.size > n:
+            raise ValueError(
+                f"a mesh of {self.shape} needs {self.size} ranks, but the "
+                f"world has {n}" + ("" if n > 1 else
+                                    " (no process group is initialised)"))
+        self.world_size = n
+        self.backend = dist.get_backend() if n > 1 else None
+        self._place(rank)
+
+    def _axes(self, axes: dict) -> None:
         self.shape = {str(a): int(n) for a, n in dict(axes).items()}
         self.axis_names = tuple(self.shape)
         if any(n < 1 for n in self.shape.values()):
             raise ValueError(f"mesh axes need sizes >= 1, got {self.shape}")
         self.size = math.prod(self.shape.values())
-        n, rank = world()
-        if self.size != n:
-            raise ValueError(
-                f"a mesh of {self.shape} needs {self.size} ranks, but the "
-                f"world has {n}" + ("" if n > 1 else
-                                    " (no process group is initialised)"))
-        self.rank = rank
-        self.backend = dist.get_backend() if n > 1 else None
-        sizes = tuple(self.shape.values())
-        self.coords = dict(zip(self.axis_names,
-                               (int(c) for c in np.unravel_index(rank,
-                                                                 sizes))))
         self._groups: dict[tuple, tuple] = {}
+
+    def _place(self, rank: int) -> None:
+        """This rank's coordinates: None outside the mesh."""
+        self.rank = rank
+        self.member = rank < self.size
+        self.coords = None
+        if self.member:
+            sizes = tuple(self.shape.values())
+            self.coords = dict(zip(self.axis_names, (
+                int(c) for c in np.unravel_index(rank, sizes))))
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, "
                 f"backend={self.backend})")
 
     def _check(self, axes) -> tuple[str, ...]:
+        if not self.member:
+            raise ValueError(f"rank {self.rank} lies outside the mesh "
+                             f"{self.shape} of ranks 0-{self.size - 1}")
         names = flat_axes(axes)
         for a in names:
             if a not in self.shape:
@@ -139,27 +171,38 @@ class Mesh:
 
     def _group(self, names: tuple[str, ...]):
         """(process group, its members ordered by index along `names`)
-        of this rank's group along `names`.  Every rank makes every group
-        along `names` at their first use, in one order."""
+        of this rank's group along `names`, made at its first use.  On a
+        mesh that spans the world every rank makes every group along
+        `names`, in one order; on a smaller one each member makes its own
+        group alone, with its peers (`use_local_synchronization`)."""
         if names in self._groups:
             return self._groups[names]
         rest = [a for a in self.axis_names if a not in names]
+        whole = self.size == self.world_size
         mine = None
         for fixed in np.ndindex(*(self.shape[a] for a in rest)):
             base = dict(zip(rest, fixed))
             members = [self._rank_of({**base, **dict(zip(names, idx))})
                        for idx in np.ndindex(*(self.shape[a]
                                                for a in names))]
-            if len(members) == self.size:
+            if not whole and self.rank not in members:
+                continue
+            if len(members) == self.world_size:
                 group = dist.group.WORLD
             else:
                 group = dist.new_group(
                     sorted(members),
-                    timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+                    timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S),
+                    use_local_synchronization=not whole)
             if self.rank in members:
                 mine = (group, members)
         self._groups[names] = mine
         return mine
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (none without a group)."""
+        if self.size > 1:
+            dist.barrier(group=self._group(self._check(self.axis_names))[0])
 
     def _staged(self, x: torch.Tensor, own: bool = False):
         """(the tensor the collective takes: x, or a copy of it where
@@ -198,6 +241,19 @@ class Mesh:
     def _all_reduce(self, x, names, op="sum"):
         if self.axis_size(names) == 1:
             return x.clone()
+        return self._charged("all-reduce", self._move_all_reduce, x, names,
+                             op)
+
+    @staticmethod
+    def _charged(kind: str, move, *args) -> torch.Tensor:
+        """`move(*args)`, the ops it runs counting nothing, charged to the
+        active counters as one collective of `kind`."""
+        with cost.uncounted():
+            out = move(*args)
+        cost.collective(kind, out)
+        return out
+
+    def _move_all_reduce(self, x, names, op):
         group, _ = self._group(names)
         buf, _, back = self._staged(x, own=True)
         buf = buf.contiguous()
@@ -217,6 +273,10 @@ class Mesh:
         return self._all_gather(x, names, dim)
 
     def _all_gather(self, x, names, dim):
+        return self._charged("all-gather", self._move_all_gather, x, names,
+                             dim)
+
+    def _move_all_gather(self, x, names, dim):
         group, members = self._group(names)
         buf, empty, back = self._staged(x)
         buf = buf.contiguous()
@@ -246,6 +306,10 @@ class Mesh:
         return self._reduce_scatter(x, names, dim)
 
     def _reduce_scatter(self, x, names, dim):
+        return self._charged("reduce-scatter", self._move_reduce_scatter, x,
+                             names, dim)
+
+    def _move_reduce_scatter(self, x, names, dim):
         size = x.shape[dim] // self.axis_size(names)
         i = self.axis_index(names)
         group, members = self._group(names)
@@ -262,6 +326,42 @@ class Mesh:
         out = torch.empty_like(ins[0])
         dist.reduce_scatter(out, ins, group=group)
         return back(out)
+
+
+class CountingMesh(Mesh):
+    """A stand-in for counting: a mesh of `axes` whose program is rank
+    `rank`'s, with no process group, on meta tensors (see the module
+    docstring).  Each collective returns an empty meta tensor of its
+    result's shape and is charged as a real mesh's is."""
+
+    def __init__(self, axes: dict, rank: int = 0):
+        self._axes(axes)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} lies outside the mesh "
+                             f"{self.shape}")
+        self.world_size = self.size
+        self.backend = None
+        self._place(rank)
+
+    @staticmethod
+    def _meta(x: torch.Tensor, shape) -> torch.Tensor:
+        if x.device.type != "meta":
+            raise ValueError(f"a CountingMesh counts meta tensors, not a "
+                             f"tensor on {x.device}")
+        return x.new_empty(shape)
+
+    def _move_all_reduce(self, x, names, op):
+        return self._meta(x, x.shape)
+
+    def _move_all_gather(self, x, names, dim):
+        shape = list(x.shape)
+        shape[dim] *= self.axis_size(names)
+        return self._meta(x, shape)
+
+    def _move_reduce_scatter(self, x, names, dim):
+        shape = list(x.shape)
+        shape[dim] //= self.axis_size(names)
+        return self._meta(x, shape)
 
 
 def _tracked(x: torch.Tensor) -> bool:

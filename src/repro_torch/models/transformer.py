@@ -58,7 +58,9 @@ specs imply them: every rank takes the whole batch and keeps its rows
 (`plan.shard_inputs`), and its blocks of the weights
 (`plan.shard_params`); each layer's FSDP blocks are all-gathered over
 the data axes just before it runs (`plan.gather_data`) and dropped
-after it; every tagged activation is relaid by `ctx.act` to the plan's
+after it, the top-level leaves (embed, final_norm, head) once a step
+(`_top_blocks`: under the "dp" strategy they too are cut over every
+axis); every tagged activation is relaid by `ctx.act` to the plan's
 `act_spec` (`plan.act`).  So the embedding is a masked lookup into the
 rank's vocab block summed over `model`; `wq`/`wi`/`wg` are
 column-parallel, `wo` row-parallel with its sum reduce-scattered back
@@ -67,7 +69,9 @@ the `seq` strategy runs flash on the rank's query rows at their global
 positions (`q_offset`, and the RoPE positions of its block) against the
 all-gathered K/V; head-TP expands GQA K/V to one head a query head
 first (`_expand_kv`), as the reference; the logits are vocab-sharded.
-MoE blocks run `moe.moe_apply_sharded` on the rank's rows and experts.
+MoE blocks run `moe.moe_apply_sharded` on the rank's rows and experts
+(under "dp" the rows gathered over `model` and the gathered experts cut
+to the rank's, the reference's `shard_map` specs).
 The recurrent blocks gather their rmsnormed input over the sequence
 (their conv, token shift and scan run along time) and run on the rank's
 block of the channels: RG-LRU's `rglru_scan` on its W/tp channels,
@@ -557,6 +561,23 @@ def _rwkv_sharded(p, x, cache, ctx, ps):
                "shift_cm": h2[:, -1, :].float()}
 
 
+def _moe_blocks(p, h, ctx, mi):
+    """(the expert weights, the input, its spec) as the expert-parallel
+    MoE takes them under a plan: the rank's experts and its rows over the
+    data axes.  The other strategies lay them out so already (h by
+    `mi`); under "dp" the weights come gathered whole and the rows split
+    over every axis, so each rank keeps its experts of `model` and
+    gathers its rows over it (the reference's `shard_map` specs)."""
+    plan = ctx.shd
+    if plan.strategy != "dp":
+        return p, h, mi
+    m = plan.model_axis
+    experts = plan.block(ctx.cfg.num_experts, m)
+    p = {k: w if k == "router" else w[experts] for k, w in p.items()}
+    xs = plan._fit_cache((plan.dp, None, None), ctx.bt + (ctx.cfg.d_model,))
+    return p, plan.relayout(h, mi, xs), xs
+
+
 def apply_block(btype, p, x, cache, ctx, ps=None):
     """One block on this rank's blocks; `ps` (under a plan) the compute
     specs of the block's weights `p` (`plan.compute_spec`)."""
@@ -571,20 +592,22 @@ def apply_block(btype, p, x, cache, ctx, ps=None):
         h = ctx.act(h, "mlp_in", hid)
         if btype != "moe":
             return x + _mlp_sum(p, h, ctx, ps), new_cache, aux
+        pm, hm = p["moe"], h
         if ctx.shd is not None:
             mi = ctx.spec("mlp_in", cfg.d_model)
-            if mi[0] is None and ctx.shd._size(ctx.shd.dp) > 1:
+            pm, hm, xs = _moe_blocks(pm, h, ctx, mi)
+            if xs[0] is None and ctx.shd._size(ctx.shd.dp) > 1:
                 raise ValueError(
                     f"an MoE block under a plan needs its batch of "
                     f"{ctx.bt[0]} divisible by the data axes "
                     f"{ctx.shd.data_axes}")
-        mo, aux = moe.moe_apply(p["moe"], h, cfg, ctx.mesh,
+        mo, aux = moe.moe_apply(pm, hm, cfg, ctx.mesh,
                                 router_bias=ctx.router_bias,
                                 skip_empty=ctx.mode == "decode",
                                 use_kernel=ctx.use_kernel,
                                 data_axes=ctx.data_axes)
         if ctx.shd is not None:   # summed over model inside
-            mo = ctx.act(mo, "hidden", mi)
+            mo = ctx.act(ctx.shd.relayout(mo, xs, mi), "hidden", mi)
         if cfg.dense_ff_residual:
             mo = mo + _mlp_sum(p, h, ctx, ps, "dense")
         return x + mo, new_cache, aux
@@ -728,16 +751,34 @@ def _on_device(params, batch) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
+_TOP = ("embed", "final_norm", "head")
+
+
+def _top_blocks(params, plan):
+    """`params` with the top-level leaves (embed, final_norm, head) as the
+    rank computes with them: under a plan each gathered over the data
+    axes that cut its storage (`plan.gather_data`, once a step: the
+    "dp" strategy cuts every leaf over every axis), laid out by its
+    `compute_spec`; `params` itself without a plan."""
+    if plan is None:
+        return params
+    specs = plan.model_specs()
+    return {k: plan.gather_data(v, specs[k]) if k in _TOP else v
+            for k, v in params.items()}
+
+
 def _embed_in(cfg, params, batch, ctx):
     """The embedded inputs, laid out as "hidden".  Under a plan the
-    embedding is the rank's block of the vocabulary: a masked lookup,
-    summed over the axes that split it."""
+    embedding is the rank's block of the vocabulary by its compute spec
+    (`params` from `_top_blocks`): a masked lookup, summed over the axes
+    that split it."""
     if not cfg.embed_inputs:
         x, part = batch["embeds"].to(cfg.torch_dtype), None
     elif ctx.shd is None:
         return params["embed"][batch["tokens"].long()]
     else:
-        emb, part = params["embed"], ctx.shd.model_specs()["embed"][0]
+        emb = params["embed"]
+        part = ctx.shd.compute_spec(ctx.shd.model_specs()["embed"])[0]
         ids = batch["tokens"].long()
         if part is not None:
             ids = ids - ctx.shd.block(emb.shape[0] * ctx.shd._size(part),
@@ -760,17 +801,17 @@ def _positions_for(cfg, batch, t):
 
 def _logits(cfg, params, x, ctx):
     """Logits of x (B, T, D; under a plan this rank's rows, T and D
-    whole), under a plan this rank's block by `act_spec("logits")`."""
+    whole), under a plan this rank's block by `act_spec("logits")`
+    (`params` from `_top_blocks`)."""
     plan = ctx.shd
     head = params.get("head")
     if plan is None:
         return x @ (params["embed"].T if head is None else head)
     specs = plan.model_specs()
     if head is None:
-        w, cols = params["embed"].T, specs["embed"][0]
+        w, cols = params["embed"].T, plan.compute_spec(specs["embed"])[0]
     else:
-        w = plan.gather_data(head, specs["head"])
-        cols = plan.compute_spec(specs["head"])[1]
+        w, cols = head, plan.compute_spec(specs["head"])[1]
     rows = ctx.spec("hidden", cfg.d_model)[:1]
     return ctx.act(x @ w, "logits", rows + (None, cols))
 
@@ -785,19 +826,26 @@ def _shard_batch(cfg, batch, plan) -> tuple[dict, tuple]:
     return {**batch, **plan.shard_inputs(rows)}, tuple(x.shape[:2])
 
 
-def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
-    """Full-sequence pass.  Returns (final-normed hidden (B,T,D), caches,
-    aux, ctx); under a plan (`shd`, a whole batch on every rank) this
-    rank's blocks."""
-    plan = check_plan(shd)
+def _forward(cfg, params, batch, plan, mode, use_kernel):
+    """`forward`'s result and the top-level leaves it computed with
+    (`_top_blocks`), for the logits that follow it."""
     batch, bt = _shard_batch(cfg, _on_device(params, batch), plan)
     t = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
     ctx = Ctx(cfg=cfg, mode=mode, positions=_positions_for(cfg, batch, t),
               use_kernel=use_kernel, shd=plan, bt=bt)
+    params = _top_blocks(params, plan)
     x = _embed_in(cfg, params, batch, ctx)
     x, caches, aux = run_segments(params, x, None, ctx)
     x = layers.rmsnorm(x, params["final_norm"])
-    return x, caches, aux, ctx
+    return x, caches, aux, ctx, params
+
+
+def forward(cfg, params, batch, shd=None, mode="train", use_kernel=None):
+    """Full-sequence pass.  Returns (final-normed hidden (B,T,D), caches,
+    aux, ctx); under a plan (`shd`, a whole batch on every rank) this
+    rank's blocks."""
+    return _forward(cfg, params, batch, check_plan(shd), mode,
+                    use_kernel)[:4]
 
 
 def _xent(cfg, params, ctx, xc, tc, wc):
@@ -861,7 +909,8 @@ def loss_fn(cfg, params, batch, shd=None, use_kernel=None):
     value on every rank (a detached all_reduce over every axis) and this
     rank's term's gradient."""
     plan = check_plan(shd)
-    x, _, aux, ctx = forward(cfg, params, batch, plan, use_kernel=use_kernel)
+    x, _, aux, ctx, top = _forward(cfg, params, batch, plan, "train",
+                                   use_kernel)
     batch = _on_device(params, batch)
     tgt = batch["tokens"] if cfg.embed_inputs else batch["labels"]
     targets = F.pad(tgt[:, 1:].long(), (0, 1))
@@ -871,7 +920,7 @@ def loss_fn(cfg, params, batch, shd=None, use_kernel=None):
     b, t = targets.shape
     if plan is not None:
         x, targets, weights = _loss_blocks(x, targets, weights, ctx)
-    xent = functools.partial(_xent, cfg, params, ctx)
+    xent = functools.partial(_xent, cfg, top, ctx)
     chunk = cfg.loss_chunk
     if chunk and t % chunk == 0:
         total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -898,13 +947,14 @@ def prefill(cfg, params, batch, shd=None, use_kernel=None):
     of the weights, `plan.shard_params`) this rank's blocks: of the
     logits by `act_spec("logits")`, of the cache by `cache_specs` (the
     decode layout)."""
-    x, caches, aux, ctx = forward(cfg, params, batch, shd, mode="prefill",
-                                  use_kernel=use_kernel)
+    x, caches, aux, ctx, top = _forward(cfg, params, batch,
+                                        check_plan(shd), "prefill",
+                                        use_kernel)
     last = x[:, -1:]
     if ctx.shd is not None:   # the last position's block holds it
         hid = ctx.spec("hidden", cfg.d_model)
         last = ctx.shd.relayout(last, hid, hid[:1])[:, -1:]
-    return _logits(cfg, params, last, ctx), caches, aux
+    return _logits(cfg, top, last, ctx), caches, aux
 
 
 def decode_step(cfg, params, batch, cache, shd=None, use_kernel=None):
@@ -920,6 +970,7 @@ def decode_step(cfg, params, batch, cache, shd=None, use_kernel=None):
               positions=batch["positions"].to(torch.int32),
               use_kernel=use_kernel, router_bias=batch.get("router_bias"),
               shd=plan, bt=bt)
+    params = _top_blocks(params, plan)
     x = _embed_in(cfg, params, batch, ctx)
     x, caches, aux = run_segments(params, x, cache, ctx)
     x = layers.rmsnorm(x, params["final_norm"])

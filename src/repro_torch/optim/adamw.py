@@ -183,29 +183,39 @@ class _Whole:
         self.plan, self.zs, self.zr, self.zc = plan, zs, zr, zc
         self.n = shape      # the leaf's global shape
 
-    def _sum(self, x, axes):
-        return self.plan.mesh.all_reduce(x, axes) if flat_axes(axes) else x
+    def _sum(self, x, have, want, axes):
+        """x, a term under spec `have` of a sum over `axes`, summed and
+        laid out by `want`."""
+        return self.plan.relayout(x, have, want, flat_axes(axes) or None)
 
     def row_mean(self, g2):
         """mean(-1), laid out as `r`."""
         if self.plan is None:
             return g2.mean(dim=-1)
-        return self._sum(g2.sum(dim=-1), self.zs[-1]) / self.n[-1]
+        return self._sum(g2.sum(dim=-1), self.zs[:-1], self.zr,
+                         self.zs[-1]) / self.n[-1]
 
     def col_mean(self, g2):
         """mean(-2), laid out as `c`."""
         if self.plan is None:
             return g2.mean(dim=-2)
-        s = self.plan.relayout(g2.sum(dim=-2), self.zs[:-2] + self.zs[-1:],
-                               self.zc, partial=flat_axes(self.zs[-2]) or None)
+        s = self._sum(g2.sum(dim=-2), self.zs[:-2] + self.zs[-1:], self.zc,
+                      self.zs[-2])
         return s / self.n[-2]
 
     def denom(self, rhat):
-        """rhat.mean(-1, keepdim=True) over r's whole last dimension."""
+        """rhat.mean(-1, keepdim=True) over r's whole last dimension,
+        laid out as the leaf's leading dimensions."""
         if self.plan is None:
             return rhat.mean(dim=-1, keepdim=True)
-        return (self._sum(rhat.sum(dim=-1), self.zr[-1]) / self.n[-2])[
-            ..., None]
+        return (self._sum(rhat.sum(dim=-1), self.zr[:-1], self.zs[:-2],
+                          self.zr[-1]) / self.n[-2])[..., None]
+
+    def row_as_leaf(self, rhat):
+        """`r` laid out as the leaf's rows."""
+        if self.plan is None:
+            return rhat
+        return self.plan.relayout(rhat, self.zr, self.zs[:-1])
 
     def col_as_leaf(self, chat):
         """`c` laid out as the leaf's columns."""
@@ -230,7 +240,8 @@ def _update(cfg, g, m, v, p_ref, decay, scale, lr, b1c, b2c,
         del g2
         rhat, chat = r / b2c, c / b2c
         denom = whole.denom(rhat)
-        vhat = (rhat[..., None] * whole.col_as_leaf(chat)[..., None, :]
+        vhat = (whole.row_as_leaf(rhat)[..., None]
+                * whole.col_as_leaf(chat)[..., None, :]
                 ).div_(torch.clamp(denom[..., None], min=1e-30))
         v["r"].copy_(r)
         v["c"].copy_(c)

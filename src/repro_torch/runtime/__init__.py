@@ -1,2 +1,3 @@
 """The fault-tolerant training runtime: heartbeat, straggler monitor,
-bounded-restart supervision (`fault`)."""
+bounded-restart supervision (`fault`), and the shrink onto fewer ranks
+after a permanent loss (`elastic`)."""

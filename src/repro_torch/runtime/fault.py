@@ -14,8 +14,10 @@ The supervision loop the launcher (`repro_torch.launch.train`) runs:
                       deterministic data (`repro_torch.data`) so the
                       retrained steps see the same batches.
 
-The JAX package's elastic shrink (`repro.runtime.elastic`: re-mesh onto
-fewer devices) has no counterpart on one card.
+After a permanent loss of ranks the job shrinks instead of restarting
+as it was: `runtime.elastic.shrink_mesh` builds the largest mesh the
+survivors hold and `reshard_state` restores the latest checkpoint onto
+it, and training goes on from there.
 """
 from __future__ import annotations
 

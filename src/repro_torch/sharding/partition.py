@@ -48,6 +48,15 @@ and master are cut by the plan with FSDP forced on (`zero1`, the
 reference's ZeRO-1 specs): over the data axes even where the weights are
 not (`shard_state` cuts a whole train state into a rank's blocks).
 
+The "dp" strategy (`strategy_override="dp"`, every mode but decode) is
+pure data parallelism with ZeRO-3: every leaf cut on its largest
+dimension over every axis (or over the data axes where only they
+divide it), the batch's rows and every activation's over every axis.
+`gather_data` gathers such a leaf whole (its entry holds a data axis)
+and `compute_spec` drops it, so the layers, the embedding, the final
+norm and the head run on whole weights and the rank's rows, and the
+gathers' adjoints sum each leaf's gradient into its block.
+
 Training: each rank runs a function of its own blocks, and its gradients
 are its terms of the reference's when three things hold.
 
@@ -80,6 +89,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.analysis import cost
 from repro_torch.launch.mesh import flat_axes
 
 __all__ = ["FSDP_THRESHOLD", "ShardingPlan", "map_with_path",
@@ -437,10 +447,13 @@ class ShardingPlan:
         """`param_specs` of the plan's model (`cfg`'s parameter tree at
         full shape), computed once."""
         if self._model_specs is None:
-            # the models import this module
+            # the models import this module; the shapes are plumbing, not
+            # a step's work (a counter on meta would count their draws)
             from repro_torch.models import transformer
-            self._model_specs = self.param_specs(transformer.init_params(
-                self.cfg, torch.Generator(), "meta"))
+            with cost.uncounted():
+                self._model_specs = self.param_specs(
+                    transformer.init_params(self.cfg, torch.Generator(),
+                                            "meta"))
         return self._model_specs
 
     def _is_data(self, entry) -> bool:

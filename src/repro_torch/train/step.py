@@ -22,6 +22,12 @@ GSPMD place every tensor; here every rank runs the step on its blocks:
 * the metrics are replicated (`metric_shardings`): the loss the global
   mean, the grad norm over the whole leaves.
 
+Microbatches split the whole batch first, then each microbatch's rows go
+over the data axes (over every axis under the "dp" strategy), or stay on
+every rank where they do not divide (each token's loss term then counts
+on one rank), as the reference's `act` drops an axis that does not
+divide.
+
 PyTorch runs eagerly and has no jit: `jit_train_step` builds nothing
 ahead; it returns the per-rank step, the abstract state and its specs,
 the tuple the reference returns, and the step checks each input's shape

@@ -69,19 +69,21 @@ def jplan(case: chk.Case, mode: str):
                  fsdp=case.fsdp)
 
 
-def block(spec, shape, coords) -> tuple:
+def block(spec, shape, coords, mesh=None) -> tuple:
     """The slices of a rank's block of `shape` under `spec`, from the
-    rank's mesh coordinates (row-major over a tuple of axes)."""
+    rank's mesh coordinates (row-major over a tuple of axes) on `mesh`
+    ({axis: size}; the tests' (data 2, model 2) by default)."""
+    mesh = chk.MESH if mesh is None else mesh
     out = []
     for dim, e in zip(shape, tuple(spec) + (None,) * len(shape)):
         if e is None:
             out.append(slice(None))
             continue
         axes = (e,) if isinstance(e, str) else tuple(e)
-        n = math.prod(chk.MESH[a] for a in axes)
+        n = math.prod(mesh[a] for a in axes)
         idx = 0
         for a in axes:
-            idx = idx * chk.MESH[a] + coords[a]
+            idx = idx * mesh[a] + coords[a]
         out.append(slice(idx * dim // n, (idx + 1) * dim // n))
     return tuple(out)
 

@@ -7,12 +7,16 @@ model 2) mesh, f32 products in full precision, and writes the outputs to
 an `.npz`:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        PYTHONPATH=src:tests python tests/jax_gspmd_reference.py OUT CASES
+        PYTHONPATH=src:tests python tests/jax_gspmd_reference.py OUT CASES \\
+        [OPTIONS]
 
 `jit_prefill_step` over the prompt (logits, the prompt's cache, expert
 loads), then the cache set into a longer one by leaf (a state or a window
 cache whole, a full cache's first positions) and STEPS `jit_decode_step`
-calls (logits and loads each, the final cache)."""
+calls (logits and loads each, the final cache).  OPTIONS, a JSON object,
+may set the prefill plan's `strategy_override` ("strategy") and stop
+after the prefill ("prefill_only")."""
+import json
 import sys
 
 import jax
@@ -54,7 +58,8 @@ def _set(c, s):
     return s if c.shape == s.shape else c.at[:, :, :s.shape[2]].set(s)
 
 
-def main(dst: str, cases: str) -> None:
+def main(dst: str, cases: str, options: str = "{}") -> None:
+    opts = json.loads(options)
     assert jax.device_count() == chk.RANKS, jax.devices()
     cb.load_all()
     # Auto axes: the reference's plans constrain layouts for GSPMD
@@ -64,7 +69,8 @@ def main(dst: str, cases: str) -> None:
     out = {}
     for case in chk.from_json(cases):
         name, cfg = case.name, chk.config(cb, case)
-        pre_plan = ShardingPlan(mesh, cfg, mode="prefill", fsdp=case.fsdp)
+        pre_plan = ShardingPlan(mesh, cfg, mode="prefill", fsdp=case.fsdp,
+                                strategy_override=opts.get("strategy"))
         dec_plan = ShardingPlan(mesh, cfg, mode="decode", fsdp=case.fsdp)
         pre_in, dec_in = chk.inputs(case)
         prefill, shapes = step.jit_prefill_step(cfg, pre_plan,
@@ -77,6 +83,8 @@ def main(dst: str, cases: str) -> None:
         out[f"{name}_0_logits"] = np.asarray(logits)
         out.update(_leaves(f"{name}_prefill", pre))
         out.update(_loads(f"{name}_0", loads))
+        if opts.get("prefill_only"):
+            continue
         decode, _, cshapes = step.jit_decode_step(
             cfg, dec_plan, _specs(dec_in[0]), chk.B, chk.length(case.t0))
         cache = jt.init_cache(cfg, chk.B, chk.length(case.t0))
@@ -92,4 +100,4 @@ def main(dst: str, cases: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(*sys.argv[1:])

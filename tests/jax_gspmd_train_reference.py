@@ -8,14 +8,18 @@ mesh, f32 products in full precision, and writes to an `.npz`:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         PYTHONPATH=src:tests python tests/jax_gspmd_train_reference.py \\
-        OUT CASES
+        OUT CASES [OPTIONS]
 
 per case the loss and every gradient leaf of `loss_fn(shd=plan)` at the
 initial weights on the first batch (`jax.value_and_grad`, whole leaves),
 then the metrics of `TRAIN_STEPS` steps and every leaf of the state after
 them (whole, in jax's flatten order); and the same gradients and steps
 without a plan (`*_one*` keys): how far the reference's own sums in
-another order move them."""
+another order move them.  OPTIONS, a JSON object, may set the plans'
+`strategy_override` ("strategy"), each case's batch rows ("rows")
+and microbatches ("microbatches"), by case name, and the leaves
+`torch_gspmd_checks.weights` draws ("drawn")."""
+import json
 import sys
 
 import jax
@@ -34,7 +38,11 @@ from repro.sharding.partition import ShardingPlan  # noqa: E402
 from repro.train import step  # noqa: E402
 
 
-def main(dst: str, cases: str) -> None:
+def main(dst: str, cases: str, options: str = "{}") -> None:
+    opts = json.loads(options)
+    rows = opts.get("rows", {})
+    micro = dict(chk.MICROBATCHES, **opts.get("microbatches", {}))
+    drawn = opts.get("drawn")
     assert jax.device_count() == chk.RANKS, jax.devices()
     cb.load_all()
     # Auto axes: the reference's plans constrain layouts for GSPMD
@@ -44,16 +52,17 @@ def main(dst: str, cases: str) -> None:
     out = {}
     for case in gchk.from_json(cases):
         name, cfg = case.name, gchk.config(cb, case)
-        plan = ShardingPlan(mesh, cfg, mode="train", fsdp=case.fsdp)
+        plan = ShardingPlan(mesh, cfg, mode="train", fsdp=case.fsdp,
+                            strategy_override=opts.get("strategy"))
         opt = chk.opt_config(adamw, case)
         data = [{k: jnp.asarray(v) for k, v in b.items()}
-                for b in chk.batches(case)]
+                for b in chk.batches(case, rows=rows.get(name, chk.B))]
         specs = {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
                  for k, v in data[0].items()}
         train, shapes, st_sh = step.jit_train_step(
-            cfg, opt, plan, specs, chk.MICROBATCHES.get(name, 1))
+            cfg, opt, plan, specs, micro.get(name, 1))
         params = jax.device_put(
-            jax.tree_util.tree_map(jnp.asarray, gchk.weights(cfg)),
+            jax.tree_util.tree_map(jnp.asarray, gchk.weights(cfg, drawn)),
             st_sh.params)
         loss, grads = jax.jit(jax.value_and_grad(
             lambda p: jt.loss_fn(cfg, p, data[0], shd=plan)[0]))(params)
@@ -67,11 +76,11 @@ def main(dst: str, cases: str) -> None:
         # the steps under the plan, then on one device (the reference's own
         # spread, as for the gradients)
         one_step = jax.jit(step.make_train_step(
-            cfg, opt, None, chk.MICROBATCHES.get(name, 1)))
+            cfg, opt, None, micro.get(name, 1)))
         for tag, fn, sh in (("", train, st_sh), ("_one", one_step, None)):
             # fresh weights: the jitted step donates its state
             state = adamw.init_state(opt, jax.tree_util.tree_map(
-                jnp.asarray, gchk.weights(cfg)))
+                jnp.asarray, gchk.weights(cfg, drawn)))
             if sh is not None:
                 state = jax.device_put(state, sh)
             for k, batch in enumerate(data):
@@ -84,4 +93,4 @@ def main(dst: str, cases: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(*sys.argv[1:])

@@ -225,9 +225,15 @@ def test_perf_variants(tmp_path):
                          "flops_by_class", "bytes_per_device",
                          "collective_bytes_per_device", "roofline",
                          "xla_temp_bytes", "compile_s"}
-    for variant in ("dp", "dp_mb1", "dp_mb4", "flash1024", "dp_noremat"):
+    for variant in ("flash1024", "flash1024_noremat"):
         with pytest.raises(ValueError, match="not ported"):
             t_perf.variant_config("granite-3-2b", variant)
+    # the dp variants keep the config (the plan takes the strategy);
+    # test_torch_gspmd_dp.py counts them
+    for variant in ("dp", "dp_mb1", "dp_mb4"):
+        assert t_perf.variant_config("granite-3-2b", variant).remat == "full"
+    assert t_perf.variant_config("granite-3-2b", "dp_noremat").remat == \
+        "none"
     t_perf.main(["--arch", "granite-3-2b", "--shape", "decode_32k",
                  "--out", str(tmp_path), "--hypothesis", "h"])
     r = json.loads((tmp_path / "granite-3-2b_decode_32k_base.json")

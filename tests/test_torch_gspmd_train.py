@@ -38,11 +38,9 @@ import pytest
 import torch
 
 import gspmd_asserts as ga
+import gspmd_train_asserts as gta
 import torch_asserts  # noqa: F401  (one torch thread under xdist)
 import torch_gspmd_train_checks as chk
-from repro.optim import adamw as jadamw
-from repro.sharding.partition import ShardingPlan as JPlan
-from repro.train import step as jstep
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import base as tcb
 from repro_torch.launch import mesh as tmesh
@@ -54,11 +52,7 @@ from repro_torch.tree_util import leaves
 jax.config.update("jax_default_matmul_precision", "float32")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-TOL = 1e-5
-NORM_RTOL = 1e-5
-# where the reference's own GSPMD and one-device results sit farther apart
-# than TOL, the port is held within this many times their gap
-SPREAD = 2.0
+TOL, NORM_RTOL, SPREAD = gta.TOL, gta.NORM_RTOL, gta.SPREAD
 CASES = pytest.mark.parametrize("case", chk.CASES,
                                 ids=[c.name for c in chk.CASES])
 
@@ -87,32 +81,9 @@ def run(tmp_path_factory):
     return ranks, dict(np.load(dst)), ckpt_dir
 
 
-def _specs(case):
-    """The reference's `state_shardings` as PartitionSpecs, with the
-    whole state's shapes, each a list in jax's flatten order of the
-    state."""
-    cfg = ga.jconfig(case)
-    opt = chk.opt_config(jadamw, case)
-    shapes = jstep.abstract_state(cfg, opt)
-    plan = JPlan(ga.FakeMesh(chk.MESH), cfg, mode="train", fsdp=case.fsdp)
-    zero1 = JPlan(ga.FakeMesh(chk.MESH), cfg, mode="train", fsdp=True)
-    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)
-    specs = jadamw.TrainState(
-        step=jax.sharding.PartitionSpec(),
-        params=plan.param_specs(shapes.params),
-        m=zero1.param_specs(shapes.m), v=zero1.param_specs(shapes.v),
-        master=(None if shapes.master is None
-                else zero1.param_specs(shapes.master)))
-    flat = jax.tree_util.tree_leaves(specs, is_leaf=is_spec)
-    return flat, jax.tree_util.tree_leaves(shapes), specs
-
-
-def _fields(specs) -> list:
-    """Each state leaf's field name, in jax's flatten order."""
-    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)
-    return [f for f in specs._fields if getattr(specs, f) is not None
-            for _ in jax.tree_util.tree_leaves(getattr(specs, f),
-                                               is_leaf=is_spec)]
+_specs = gta.state_specs
+_fields = gta.fields
+_hold = gta.hold
 
 
 @CASES
@@ -121,22 +92,6 @@ def test_loss_matches_jax_under_the_plan(run, case):
     want = float(ref[f"{case.name}_loss"])
     for r in ranks:
         assert abs(r[case.name]["loss"] - want) <= TOL * abs(want)
-
-
-def _hold(ranks, get, want, one, spec, what: str) -> None:
-    """Every rank's block (`get(rank)`) of a leaf within relative L2 `tol`
-    of its block of the reference's `want`, and the blocks put together
-    within `tol` of it: `tol` is TOL, or SPREAD times the reference's own
-    gap to `one` (its result without a plan) where that is larger."""
-    tol = max(TOL, SPREAD * ga.rel(one, want))
-    whole = np.full(want.shape, np.nan)
-    for r in ranks:
-        sl = ga.block(spec, want.shape, r["coords"])
-        got = get(r).numpy()
-        assert got.shape == want[sl].shape, (what, r["coords"])
-        assert ga.rel(got, want[sl]) <= tol, (what, r["coords"], tol)
-        whole[sl] = got
-    assert ga.rel(whole, want) <= tol, (what, tol)
 
 
 @CASES

@@ -77,19 +77,22 @@ def from_json(text: str) -> tuple:
                  for n, a, f, o, t in json.loads(text))
 
 
-def weights(cfg) -> dict:
+def weights(cfg, drawn: str | None = None) -> dict:
     """The numpy weights both packages serve: `numpy_params(cfg, 0)`, with
     the recurrent blocks' constant leaves drawn (seed 2) about their
-    constants."""
+    constants; with `drawn` (a pattern of leaf names) those leaves are
+    drawn so in every arch."""
     from repro_torch.models import convert
     from repro_torch.sharding.partition import map_with_path
     params = convert.numpy_params(cfg, 0)
-    if not (cfg.ssm or cfg.pattern):
-        return params
+    if drawn is None:
+        if not (cfg.ssm or cfg.pattern):
+            return params
+        drawn = _DRAWN
     rng = np.random.default_rng(2)
 
     def draw(name, leaf):
-        if not re.search(_DRAWN, name):
+        if not re.search(drawn, name):
             return leaf
         return (leaf + 0.1 * rng.standard_normal(leaf.shape)).astype(
             leaf.dtype)

@@ -48,17 +48,19 @@ def opt_config(adamw, case: Case):
     return adamw.AdamWConfig(**OPT, factored_v=case.name in FACTORED)
 
 
-def batches(case: Case, seed: int = 3) -> list:
-    """The TRAIN_STEPS batches of the case: tokens (B, T) int32."""
+def batches(case: Case, seed: int = 3, rows: int = B) -> list:
+    """The TRAIN_STEPS batches of the case: tokens (rows, T) int32."""
     from repro_torch.configs import base as cb
     cb.load_all()
     cfg = gchk.config(cb, case)
     rng = np.random.default_rng(seed)
-    return [{"tokens": rng.integers(0, cfg.vocab, (B, case.t0)).astype(
+    return [{"tokens": rng.integers(0, cfg.vocab, (rows, case.t0)).astype(
         np.int32)} for _ in range(TRAIN_STEPS)]
 
 
-def _case(mesh, case: Case) -> dict:
+def _case(mesh, case: Case, strategy=None, rows: int = B,
+          microbatches: int | None = None, drawn: str | None = None
+          ) -> dict:
     from repro_torch.configs import base as cb
     from repro_torch.models import convert
     from repro_torch.optim import adamw
@@ -66,14 +68,17 @@ def _case(mesh, case: Case) -> dict:
     from repro_torch.train import step
     from repro_torch.tree_util import leaves, tree_map
     cfg = gchk.config(cb, case)
-    plan = ShardingPlan(mesh, cfg, mode="train", fsdp=case.fsdp)
+    plan = ShardingPlan(mesh, cfg, mode="train", fsdp=case.fsdp,
+                        strategy_override=strategy)
     opt = opt_config(adamw, case)
-    data = batches(case)
+    data = batches(case, rows=rows)
     specs_in = {k: (v.shape, v.dtype) for k, v in data[0].items()}
+    if microbatches is None:
+        microbatches = MICROBATCHES.get(case.name, 1)
     train, shapes, specs = step.jit_train_step(
-        cfg, opt, plan, specs_in, MICROBATCHES.get(case.name, 1))
+        cfg, opt, plan, specs_in, microbatches)
     whole = adamw.init_state(opt, convert.params_from_numpy(
-        gchk.weights(cfg), "cpu"))
+        gchk.weights(cfg, drawn), "cpu"))
     state = tree_map(torch.clone, plan.shard_state(whole, specs))
     del whole
     loss, grads = step._grads(cfg, plan, specs=specs)(state.params, data[0])
